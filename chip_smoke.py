@@ -19,13 +19,27 @@ Refuses to run without CUDA (exit 1). Otherwise:
      and one render against the same render with the plain version in the
      kernel's place;
   3. profiles the last request once more: device busy time and share of
-     the request's wall time, and the kernels that take the most of it.
+     the request's wall time, and the kernels that take the most of it;
+  4. holds the FiLM-SIREN backward kernel against its plain torch version
+     (`film_siren_mlp_folded_vjp`, same bf16 roundings) at the 1.57M-point
+     study shape, at the training chunk the main path gives it and at a
+     ragged N: norm-relative error, a low-frequency max, distance to fp64
+     sums against the plain version's, bitwise-equal repeats; and times both;
+  5. drives the port's training path: the thesis model at stage 2 (step
+     16000, fade-in alpha 0.5) at full width, the discriminator with R1,
+     batch 12 at 128^2, 48 + 48 samples, ray_chunks 16, through
+     `make_train_step`: one warm-up and three timed steps (s/step, peak
+     memory, kernel launches per step against the design's count), finite
+     losses, all three nets moved, one step against the same step with the
+     plain versions in both kernels' places, and one profiled step.
 Prints one JSON line of kernel results, then the last line
-{"ok": true, "device": {...}}. Any failed check raises (non-zero exit).
+{"ok": true, "device": {...}}. Any failed check raises (non-zero exit);
+checks of phases 4 and 5 raise after phase 5, so one run reports them all.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -57,6 +71,31 @@ RENDER_TOL = 2e-2
 RENDER_MEAN_TOL = 2e-4  # [5.2e-7; 3.2e-5 with one flipped pixel]
 RENDER_OVER_SHARE = 3e-4  # [0; 3.1e-5 = 1 pixel of 32,768]
 THESIS_STEP = 30000  # a step in the last curriculum stage: ray_chunks 16
+# Phase 4 bounds for each of the nine grads of the backward kernel against
+# `film_siren_mlp_folded_vjp` (same bf16 roundings of h, cos7, g and dpre;
+# fp32 sums in another order), each about twice the sound kernel's H100
+# reading or above it by a fifth [in brackets: the largest over the nine
+# grads and three shapes]. As in phase 1, a summation-order difference flips
+# a bf16 rounding, which grows through the layers at freq 25-45; a layout or
+# indexing fault reads O(0.1-1).
+BWD_NORM_TOL = 3e-3  # |K2 - plain|_2 / |plain|_2 at freq 25-45 [1.39e-3]
+BWD_LOW_TOL = 7e-3  # max|K2 - plain| / max|plain| at freq/30 [3.57e-3]
+# Distance to the same math with fp64 sums, against the plain version's:
+# |K2 - fp64|_2 <= BWD_VS_PLAIN * |plain - fp64|_2 [1.182], and the max,
+# whose ratio swings with the few points that dominate it, <= BWD_VS_PLAIN_MAX
+# times [1.380]; each plus BWD_ULPS roundings of the grad's largest value (an
+# fp32 result is that far from the fp64 sums whatever the order of its sums).
+BWD_VS_PLAIN = 1.25
+BWD_VS_PLAIN_MAX = 1.6
+BWD_ULPS = 8 * 2.0 ** -24
+# Phase 5: one train step with the kernels against the same step with the
+# plain versions in their places (same state, batch and random numbers). A
+# flipped pixel (sign of relu(sigma) at the last sample) moves a loss by
+# ~2e-5 and the grads by ~1e-3.
+STEP_LOSS_TOL = 1e-4  # |kernel - plain| / |plain| for each loss [1.06e-6]
+STEP_GRAD_TOL = 5e-3  # |kernel - plain|_2 / |plain|_2 over a net's grads [8.75e-5]
+TRAIN_STEP = 16000  # stage 2 of the thesis curriculum, fade-in alpha 0.5
+TRAIN_TIMED_STEPS = 3
 REQUESTS = 4
 BATCH = 2
 IMAGE_SIZE = 128
@@ -297,22 +336,18 @@ def phase2_serve(device, build_dir):
     return launches, inf, requests[-1], dt
 
 
-def phase3_profile(inf, request, unprofiled_s: float) -> None:
-    """The last request once more under torch.profiler (device activity
-    only): device busy time, its share of that request's wall time with and
-    without the profiler (phase 2's run of it), and the largest kernels.
-    The profiler slows the host, not the device, so the share against the
-    unprofiled wall time is the estimate; the other bounds it from below."""
+def profile_device(fn):
+    """Run fn under torch.profiler (device activity only); returns the
+    number of device activities, device busy ms (union of their intervals)
+    and {name: [us, count]}, or None when the profiler saw no device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t_enc, t_render, *_ = serve(inf, *request)
+        fn()
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not device:
-        print("phase 3: the profiler recorded no device activity; busy share "
-              "not measured")
-        return
+        return None
     busy_us, end = 0.0, -float("inf")
     by_name: dict[str, list[float]] = {}
     for e in sorted(device, key=lambda e: e.time_range.start):
@@ -322,14 +357,310 @@ def phase3_profile(inf, request, unprofiled_s: float) -> None:
         entry = by_name.setdefault(e.name, [0.0, 0])
         entry[0] += t - s
         entry[1] += 1
-    busy_ms, wall_ms = busy_us / 1e3, (t_enc + t_render) * 1e3
-    print(f"phase 3: {len(device)} device activities, device busy {busy_ms:.3f} ms; "
+    return len(device), busy_us / 1e3, by_name
+
+
+def print_top(phase: str, by_name: dict, n: int = 8) -> None:
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]:
+        print(f"{phase}:   {us / 1e3:9.3f} ms in {count:4d} x {name[:90]}")
+
+
+def phase3_profile(inf, request, unprofiled_s: float) -> None:
+    """The last request once more under torch.profiler (device activity
+    only): device busy time, its share of that request's wall time with and
+    without the profiler (phase 2's run of it), and the largest kernels.
+    The profiler slows the host, not the device, so the share against the
+    unprofiled wall time is the estimate; the other bounds it from below."""
+    times = []
+    profiled = profile_device(lambda: times.append(serve(inf, *request)))
+    if profiled is None:
+        print("phase 3: the profiler recorded no device activity; busy share "
+              "not measured")
+        return
+    n_events, busy_ms, by_name = profiled
+    t_enc, t_render, *_ = times[0]
+    wall_ms = (t_enc + t_render) * 1e3
+    print(f"phase 3: {n_events} device activities, device busy {busy_ms:.3f} ms; "
           f"busy share {busy_ms / (unprofiled_s * 1e3):.4f} of the unprofiled "
           f"{unprofiled_s * 1e3:.3f} ms (idle {1 - busy_ms / (unprofiled_s * 1e3):.4f}), "
           f"{busy_ms / wall_ms:.4f} of the profiled {wall_ms:.3f} ms "
           f"(encode {t_enc * 1e3:.3f} ms)")
-    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"phase 3:   {us / 1e3:9.3f} ms in {count:4d} x {name[:90]}")
+    print_top("phase 3", by_name)
+
+
+def bwd_inputs(B: int, N: int, seed: int, device):
+    """kernel_inputs and a cotangent g (B, N, 4) ~ N(0, 1), from the seed."""
+    inp = kernel_inputs(B, N, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    g = torch.from_numpy(rng.normal(0, 1, (B, N, 4)).astype(np.float32)).to(device)
+    return inp, g
+
+
+def vjp_fp64(inp: dict, g: torch.Tensor, chunk: int = 131072):
+    """`film_siren_mlp_folded_vjp` with fp64 sums, over chunks of N: the
+    folded grads are sums over points, so the chunks' grads add."""
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_folded_grads,
+        unfold_film_grads,
+    )
+
+    args = list(inp.values())
+    N = args[0].shape[1]
+    parts = []
+    for lo in range(0, N, chunk):
+        sl = slice(lo, lo + chunk)
+        parts.append(film_siren_folded_grads(args[0][:, sl], *args[1:], g[:, sl],
+                                             accum_dtype=torch.float64))
+    dpoints = torch.cat([p[0] for p in parts], dim=1)
+    dw0f, dc0, dwsf, dcs, dwf_b, dbf_b = (sum(p[i] for p in parts) for i in range(1, 7))
+    rest = unfold_film_grads(dw0f, dc0, dwsf, dcs, *[args[i] for i in (1, 3, 4, 5, 6)])
+    grads = (dpoints, *rest, dwf_b.sum(0), dbf_b.sum(0))
+    return tuple(t.float() for t in grads)
+
+
+GRAD_NAMES = ("dpoints", "dfreq", "dphase", "dw0", "db0", "dws", "dbs", "dwf", "dbf")
+
+
+def check_bwd(label: str, inp: dict, g: torch.Tensor, failures: list) -> float:
+    """Hold the backward kernel against the plain VJP at one shape; returns
+    the largest max|K2 - plain| over the nine grads at freq 25-45."""
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp_bwd,
+        film_siren_mlp_folded_vjp,
+    )
+
+    B, N, _ = inp["points"].shape
+    out = film_siren_mlp_bwd(*inp.values(), g)
+    again = film_siren_mlp_bwd(*inp.values(), g)
+    equal = all(torch.equal(a, b) for a, b in zip(out, again))
+    del again
+    plain = film_siren_mlp_folded_vjp(*inp.values(), g)
+    exact = vjp_fp64(inp, g)
+    low = dict(inp, freq=inp["freq"] / 30.0)
+    out_low = film_siren_mlp_bwd(*low.values(), g)
+    plain_low = film_siren_mlp_folded_vjp(*low.values(), g)
+    print(f"phase 4 [{label}] B={B} N={N}: two launches bitwise equal: {equal}")
+    if not equal:
+        failures.append(f"phase 4 [{label}]: two launches differ")
+    worst = 0.0
+    for name, k, p, e, kl, pl in zip(GRAD_NAMES, out, plain, exact, out_low, plain_low):
+        if not torch.isfinite(k).all():
+            failures.append(f"phase 4 [{label}] {name}: non-finite")
+        err = (k - p).abs().max().item()
+        worst = max(worst, err)
+        norm = ((k - p).norm() / p.norm()).item()
+        low_max = ((kl - pl).abs().max() / pl.abs().max()).item()
+        k64 = (k - e).abs().max().item()
+        p64 = (p - e).abs().max().item()
+        k64_2 = (k - e).norm().item()
+        p64_2 = (p - e).norm().item()
+        floor = BWD_ULPS * e.abs().max().item()
+        floor_2 = BWD_ULPS * e.norm().item()
+        print(f"phase 4 [{label}] {name:7s} max|plain| {p.abs().max().item():.3e}: "
+              f"|K2-plain|_2/|plain|_2 {norm:.3e} (bound {BWD_NORM_TOL}); freq/30 "
+              f"max|K2-plain|/max|plain| {low_max:.3e} (bound {BWD_LOW_TOL}); "
+              f"|K2-fp64|_2 {k64_2:.3e} vs |plain-fp64|_2 {p64_2:.3e} (ratio "
+              f"{k64_2 / max(p64_2, 1e-30):.3f}, bound {BWD_VS_PLAIN} + {floor_2:.1e}); "
+              f"max|K2-fp64| {k64:.3e} vs max|plain-fp64| {p64:.3e} (ratio "
+              f"{k64 / max(p64, 1e-30):.3f}, bound {BWD_VS_PLAIN_MAX} + {floor:.1e}); "
+              f"max|K2-plain| {err:.3e}")
+        if not (norm < BWD_NORM_TOL and low_max < BWD_LOW_TOL
+                and k64_2 <= BWD_VS_PLAIN * p64_2 + floor_2
+                and k64 <= BWD_VS_PLAIN_MAX * p64 + floor):
+            failures.append(f"phase 4 [{label}] {name}: K2 disagrees with the plain VJP")
+    return worst
+
+
+def phase4_bwd(device, failures: list) -> dict:
+    """Backward kernel vs the plain VJP at the three shapes; returns the
+    JSON row (times at the training chunk, the main path's shape)."""
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp_bwd,
+        film_siren_mlp_folded_vjp,
+    )
+
+    shapes = [("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
+              ("training chunk", 12, IMAGE_SIZE * IMAGE_SIZE // 16 * 48),
+              ("ragged", 2, 1000)]
+    worst, row = 0.0, {}
+    for label, B, N in shapes:
+        inp, g = bwd_inputs(B, N, seed=0, device=device)
+        worst = max(worst, check_bwd(label, inp, g, failures))
+        iters = 10 if B * N > 100_000 else 50
+        ms = cuda_ms(lambda: film_siren_mlp_bwd(*inp.values(), g), iters)
+        plain_ms = cuda_ms(lambda: film_siren_mlp_folded_vjp(*inp.values(), g),
+                           max(3, iters // 5))
+        print(f"phase 4 [{label}] time: K2 {ms:.4f} ms, plain VJP {plain_ms:.4f} ms "
+              f"({B * N / ms / 1e3:.1f} Mpoints/s K2)")
+        if label == "training chunk":
+            row = dict(ms=ms, plain_ms=plain_ms)
+        del inp, g
+        torch.cuda.empty_cache()
+    return dict(name="film_siren_bwd", route="cuda",
+                source="conditioned_nerf_gan_torch/csrc/film_siren_bwd.cu",
+                replaces="conditioned_nerf_gan_tpu/ops/pallas/film_siren.py:232",
+                launches=0, max_abs_err=worst, **row)
+
+
+class PlainFilmSiren(torch.autograd.Function):
+    """Both kernels' plain versions as one differentiable op: the forward is
+    `film_siren_mlp_folded`, the backward `film_siren_mlp_folded_vjp`."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+            film_siren_mlp_folded,
+        )
+
+        ctx.save_for_backward(*args)
+        return film_siren_mlp_folded(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+            film_siren_mlp_folded_vjp,
+        )
+
+        return film_siren_mlp_folded_vjp(*ctx.saved_tensors, g)
+
+
+def record_grads(state) -> dict:
+    """Wrap the three optimizers' step to keep each net's grads as they
+    arrive (before the clip); returns {net: flat grads}, filled per step."""
+    grads = {}
+    for net in ("G", "E", "D"):
+        opt = getattr(state, f"opt_{net}")
+        step = opt.step
+
+        def recording(*args, _net=net, _opt=opt, _step=step, **kwargs):
+            grads[_net] = torch.cat([
+                (p.grad if p.grad is not None else torch.zeros_like(p)).flatten()
+                for group in _opt.param_groups for p in group["params"]])
+            return _step(*args, **kwargs)
+
+        opt.step = recording
+    return grads
+
+
+def phase5_train(device, failures: list) -> tuple[int, int]:
+    """The stage-2 train step at full width; returns the two kernels'
+    launches over the warm-up and timed steps (the main path's run; the
+    comparison and profiled steps after it are not counted)."""
+    import conditioned_nerf_gan_torch.models.siren as siren_module
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp,
+        film_siren_mlp_bwd,
+    )
+    from conditioned_nerf_gan_torch.training import (
+        build_stage_bench,
+        create_train_state,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    bench = build_stage_bench(stage=2, step=TRAIN_STEP)
+    cfg, meta = bench.config, bench.meta
+    nets = dict(G=bench.generator, E=bench.encoder, D=bench.discriminator)
+    for net in nets.values():
+        net.to(device)
+    state = create_train_state(nets["G"], nets["E"], nets["D"], cfg)
+    train_step = make_train_step(cfg)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in bench.batch.items()}
+    rng = torch.Generator(device=device).manual_seed(0)
+    r = cfg.render
+    chunks = max(r.ray_chunks, 1)
+    evals = 2 if r.hierarchical_sample else 1
+    # per step: D render, G render and the G backward's recompute, each
+    # `evals` SIREN calls per ray chunk; one backward per G-render call
+    expect_fwd, expect_bwd = 3 * evals * chunks, evals * chunks
+    print(f"phase 5: thesis model, step {TRAIN_STEP}: batch {meta['batch_size']}, "
+          f"{r.img_size}^2, {r.num_steps}+{r.num_steps} samples, ray_chunks "
+          f"{r.ray_chunks}, {meta['discriminator']} R1 {cfg.r1_lambda}, alpha "
+          f"{bench.alpha}, nerf_noise {bench.nerf_noise}, pcl "
+          f"{tuple(batch['pcl'].shape)}; set-up {time.perf_counter() - t0:.2f} s")
+    before = {name: [p.detach().clone() for p in net.parameters()]
+              for name, net in nets.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    film_siren_mlp.launches = film_siren_mlp_bwd.launches = 0
+    fwd_total = bwd_total = 0
+    step_s = []
+    for i in range(1 + TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, rng, bench.alpha, bench.nerf_noise)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        fwd, bwd = film_siren_mlp.launches, film_siren_mlp_bwd.launches
+        fwd_total, bwd_total = fwd_total + fwd, bwd_total + bwd
+        film_siren_mlp.launches = film_siren_mlp_bwd.launches = 0
+        losses = {k: float(v) for k, v in metrics.items()}
+        print(f"phase 5 step {i}{' (warm-up)' if i == 0 else ''}: {step_s[-1]:.4f} s, "
+              f"launches K1 {fwd} (design {expect_fwd}), K2 {bwd} (design "
+              f"{expect_bwd}), max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in losses.items()))
+        if (fwd, bwd) != (expect_fwd, expect_bwd):
+            failures.append(f"phase 5 step {i}: launches {fwd}/{bwd}, design "
+                            f"{expect_fwd}/{expect_bwd}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            failures.append(f"phase 5 step {i}: non-finite losses {losses}")
+    timed = step_s[1:]
+    print(f"phase 5: {np.mean(timed):.4f} s/step (steps {', '.join(f'{t:.4f}' for t in timed)}), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name, net in nets.items():
+        moved = max((p.detach() - q).abs().max().item()
+                    for p, q in zip(net.parameters(), before[name]))
+        print(f"phase 5: {name} params moved by up to {moved:.3e}")
+        if not moved > 0:
+            failures.append(f"phase 5: {name} did not move")
+    del before
+
+    # one more step with the kernels, and the same step (state, batch, random
+    # numbers) with the plain versions in both kernels' places
+    snapshot, rng_state = copy.deepcopy(state), rng.get_state()
+    runs = {}
+    for label in ("kernels", "plain"):
+        trial = copy.deepcopy(snapshot)
+        grads = record_grads(trial)
+        rng.set_state(rng_state)
+        if label == "plain":
+            siren_module.film_siren_mlp = PlainFilmSiren.apply
+        try:
+            _, metrics = train_step(trial, batch, rng, bench.alpha, bench.nerf_noise)
+        finally:
+            siren_module.film_siren_mlp = film_siren_mlp
+        runs[label] = ({k: float(v) for k, v in metrics.items()}, grads)
+        del trial
+    (loss_k, grad_k), (loss_p, grad_p) = runs["kernels"], runs["plain"]
+    for k in loss_k:
+        rel = abs(loss_k[k] - loss_p[k]) / max(abs(loss_p[k]), 1e-30)
+        print(f"phase 5: {k} kernels {loss_k[k]:.7f} plain {loss_p[k]:.7f} "
+              f"(rel {rel:.3e}, bound {STEP_LOSS_TOL})")
+        if not rel <= STEP_LOSS_TOL:
+            failures.append(f"phase 5: {k} differs from the plain step")
+    for net in ("G", "E", "D"):
+        rel = ((grad_k[net] - grad_p[net]).norm() / grad_p[net].norm()).item()
+        print(f"phase 5: {net} grads |kernels - plain|_2/|plain|_2 {rel:.3e} "
+              f"(bound {STEP_GRAD_TOL}), |plain|_2 {grad_p[net].norm().item():.3e}")
+        if not rel <= STEP_GRAD_TOL:
+            failures.append(f"phase 5: {net} grads differ from the plain step")
+    del runs, snapshot
+
+    # one profiled step: device busy share against the timed steps' mean
+    profiled = profile_device(
+        lambda: train_step(state, batch, rng, bench.alpha, bench.nerf_noise))
+    if profiled is None:
+        print("phase 5: the profiler recorded no device activity; busy share "
+              "not measured")
+    else:
+        n_events, busy_ms, by_name = profiled
+        mean_ms = np.mean(timed) * 1e3
+        print(f"phase 5: profiled step: {n_events} device activities, device busy "
+              f"{busy_ms:.3f} ms; busy share {busy_ms / mean_ms:.4f} of the timed "
+              f"steps' mean {mean_ms:.3f} ms (idle {1 - busy_ms / mean_ms:.4f})")
+        print_top("phase 5", by_name, n=12)
+    return fwd_total, bwd_total
 
 
 def main() -> int:
@@ -356,17 +687,31 @@ def main() -> int:
     except ImportError as exc:
         print("triton: not importable:", exc)
 
-    lib = build.load_library("film_siren_fwd")
-    print(f"built {lib.path.name} in {lib.build_seconds:.2f} s")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "bytes stack" in line:
-            print("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    libs = build.load_libraries("film_siren_fwd", "film_siren_bwd")
+    print(f"built {len(libs)} kernel libraries in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        print(f"built {lib.path.name} in {lib.build_seconds:.2f} s")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "bytes stack" in line:
+                print("  ptxas:", line.strip())
 
-    kernel = phase1_kernel(device)
-    kernel["launches"], inf, last_request, last_s = phase2_serve(
-        device, Path(build.BUILD_DIR))
+    fwd = phase1_kernel(device)
+    serve_launches, inf, last_request, last_s = phase2_serve(device, Path(build.BUILD_DIR))
     phase3_profile(inf, last_request, last_s)
-    print(json.dumps({"kernels": [kernel]}))
+    del inf
+    torch.cuda.empty_cache()
+    failures: list[str] = []
+    bwd = phase4_bwd(device, failures)
+    train_fwd, train_bwd = phase5_train(device, failures)
+    if failures:
+        raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
+    fwd["launches"] = serve_launches + train_fwd
+    fwd["launches_by_path"] = {"serve": serve_launches, "train": train_fwd}
+    bwd["launches"] = train_bwd
+    bwd["launches_by_path"] = {"train": train_bwd}
+    print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,9 @@ Layout (bottom-up, mirroring the JAX package):
     ops/          rays, volume integration, importance sampling;
                   `ops/kernels/` holds the wrappers of the hand-written
                   CUDA kernels (sources in `csrc/`, built at first use).
-    models/       SIREN layers and SHORTSIREN, ResNet-PointNet, the generator.
+    models/       SIREN layers and SHORTSIREN, ResNet-PointNet, the generator,
+                  the progressive discriminator.
+    training/     losses, schedules, the GAN train step, the stage workload.
     infer/        the Inferencer and its CLI (`python -m
                   conditioned_nerf_gan_torch.infer`).
     bridge.py     flax param tree / JAX checkpoint -> torch state_dict.

@@ -1,12 +1,15 @@
 """Weight bridge: flax param trees and JAX checkpoints -> torch state_dicts.
 
-A flax Dense kernel is (in, out); the torch weight is (out, in). Module
-names map onto the port's attribute names:
+A flax Dense kernel is (in, out); the torch weight is (out, in). A flax
+Conv2d kernel is HWIO; the torch weight is OIHW. Module names map onto the
+port's attribute names:
     params.siren.mapping_network.TorchLinear_i -> siren.mapping_network.layers.i
     params.siren.FiLMLayer_i.TorchLinear_0     -> siren.film_layers.i.linear
     params.block_i                             -> blocks.i
-and `kernel` -> `weight`, `bias` -> `bias`. This is the inverse of the
-`t2j_*` helpers of tests/test_models_golden.py.
+    params.fromRGB_i.conv                      -> fromRGB.i.conv
+    params.layer_i.conv1|conv2|proj            -> layers.i.conv1|conv2|proj
+and `kernel` -> `weight`, `bias` -> `bias` (`final_layer` keeps its name).
+This is the inverse of the `t2j_*` helpers of tests/test_models_golden.py.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ _RENAMES = (
     (re.compile(r"mapping_network\.TorchLinear_(\d+)"), r"mapping_network.layers.\1"),
     (re.compile(r"FiLMLayer_(\d+)\.TorchLinear_0"), r"film_layers.\1.linear"),
     (re.compile(r"(^|\.)block_(\d+)"), r"\1blocks.\2"),
+    (re.compile(r"(^|\.)fromRGB_(\d+)"), r"\1fromRGB.\2"),
+    (re.compile(r"(^|\.)layer_(\d+)"), r"\1layers.\2"),
 )
 
 
@@ -37,7 +42,8 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
 
 def params_to_state_dict(flax_tree: dict) -> dict[str, torch.Tensor]:
     """Map a flax param tree of numpy arrays ({"params": ...} or the bare
-    tree) to a torch state_dict for the port's generator or PointNet."""
+    tree) to a torch state_dict for the port's generator, PointNet or
+    discriminator."""
     tree = flax_tree.get("params", flax_tree)
     state = {}
     for name, value in _flatten(tree).items():
@@ -45,11 +51,15 @@ def params_to_state_dict(flax_tree: dict) -> dict[str, torch.Tensor]:
         for pattern, repl in _RENAMES:
             module = pattern.sub(repl, module)
         if leaf == "kernel":
-            if value.ndim != 2:
+            if value.ndim == 2:
+                weight = value.T
+            elif value.ndim == 4:
+                weight = value.transpose(3, 2, 0, 1)
+            else:
                 raise NotImplementedError(
-                    f"{name}: only Dense kernels are bridged (conv kernels come "
-                    "with ROADMAP A6/A12)")
-            state[f"{module}.weight"] = torch.from_numpy(np.ascontiguousarray(value.T))
+                    f"{name}: {value.ndim}-D kernels are not bridged (3-D conv "
+                    "kernels come with ROADMAP A12)")
+            state[f"{module}.weight"] = torch.from_numpy(np.ascontiguousarray(weight))
         elif leaf == "bias":
             state[f"{module}.bias"] = torch.from_numpy(np.array(value))
         else:

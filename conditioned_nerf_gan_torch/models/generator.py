@@ -3,8 +3,14 @@
 Conditioning latent + cameras -> rendered images: ray generation, coarse
 SIREN evaluation, hierarchical fine resampling (detached), stable sort-merge,
 final integration, pixels scaled to [-1, 1], a z-depth map. Images are NHWC.
-This port renders without gradients; `save_siren_outputs` (a measured-neutral
-training lever of the JAX package) is not ported.
+
+With grad enabled and `ray_chunks` > 1, each chunk runs under
+`torch.utils.checkpoint`, as the JAX package's `chunk_fn` remat does. Every
+random number of a render (perturbation, fine-sample uniforms, density
+noise) is drawn up front for the whole image: the recompute of a
+checkpointed chunk replays the same fine samples and noise, and chunked and
+unchunked renders draw the same numbers. `save_siren_outputs` (a
+measured-neutral training lever of the JAX package) is not ported.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import dataclasses
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.integration import volume_integrate
 from ..ops.rays import distance2depth, get_initial_rays, perturb_points, transform_rays
@@ -36,6 +43,10 @@ class RenderConfig:
     fill_mode: str | None = None
     perturb: bool = True
     ray_chunks: int = 0  # >1: render the rays in this many chunks, one at a time
+    # static density-noise gate: `nerf_noise` is added only where this is set
+    # and the render is stochastic (the trainer clears it once the schedule
+    # reaches 0)
+    density_noise: bool = True
 
     @classmethod
     def from_metadata(cls, metadata: dict, **overrides) -> "RenderConfig":
@@ -63,9 +74,12 @@ class ImplicitGenerator3d(nn.Module):
             use_kernel=use_kernel, generator=generator)
 
     def _ray_pipeline(self, z, points, z_vals, rays_d_world, origins,
-                      config: RenderConfig, generator):
+                      config: RenderConfig, fine_u, noise1, noise2, nerf_noise):
         """SIREN evals + hierarchical resample + integrate for one set of
-        rays: points (B, R, S, 3) -> pixels (B, R, 3), distances (B, R, 1)."""
+        rays: points (B, R, S, 3) -> pixels (B, R, 3), distances (B, R, 1).
+        fine_u (B, R, S) are the fine-sample uniforms (None: deterministic
+        linspace); noise1 (B, R, S, 1) and noise2 the density noise of the
+        two integrations (None: none)."""
         B, R, S, _ = points.shape
         # a ray-chunk slice reshapes to a strided view; the kernel takes
         # contiguous points
@@ -73,14 +87,16 @@ class ImplicitGenerator3d(nn.Module):
         coarse = coarse.reshape(B, R, S, 4)
         if config.hierarchical_sample:
             with torch.no_grad():
-                _, _, weights = volume_integrate(coarse, z_vals,
-                                                 clamp_mode=config.clamp_mode)
+                _, _, weights = volume_integrate(
+                    coarse, z_vals, noise_std=nerf_noise, noise=noise1,
+                    clamp_mode=config.clamp_mode)
                 weights = weights.reshape(B * R, S) + 1e-5
                 z_flat = z_vals.reshape(B * R, S)
                 z_mid = 0.5 * (z_flat[:, :-1] + z_flat[:, 1:])
-                fine_z = sample_pdf(z_mid, weights[:, 1:-1], S,
-                                    det=generator is None,
-                                    generator=generator).reshape(B, R, S, 1)
+                fine_z = sample_pdf(
+                    z_mid, weights[:, 1:-1], S, det=fine_u is None,
+                    uniforms=None if fine_u is None else fine_u.reshape(B * R, S),
+                ).reshape(B, R, S, 1)
                 fine_points = (origins[:, :, None, :]
                                + rays_d_world[:, :, None, :] * fine_z)
             fine = self.siren(fine_points.reshape(B, R * S, 3), z).reshape(B, R, S, 4)
@@ -88,20 +104,22 @@ class ImplicitGenerator3d(nn.Module):
         else:
             all_outputs, all_z = coarse, z_vals
         pixels, distances, _ = volume_integrate(
-            all_outputs, all_z, white_back=config.white_back,
-            last_back=config.last_back, clamp_mode=config.clamp_mode,
-            fill_mode=config.fill_mode)
+            all_outputs, all_z, noise_std=nerf_noise, noise=noise2,
+            white_back=config.white_back, last_back=config.last_back,
+            clamp_mode=config.clamp_mode, fill_mode=config.fill_mode)
         return pixels, distances
 
     def forward(self, z: torch.Tensor, cam2world: torch.Tensor, config: RenderConfig,
-                *, generator: torch.Generator | None = None, fov=None,
-                row_offset: int | None = None, render_rows: int | None = None):
+                *, generator: torch.Generator | None = None, nerf_noise: float = 0.0,
+                fov=None, row_offset: int | None = None,
+                render_rows: int | None = None):
         """Render a batch of images.
 
         z (B, z_dim); cam2world (B, 4, 4). `generator` drives stratified
-        perturbation and stochastic fine sampling; None renders
-        deterministically. `fov` overrides config.fov (scalar or per-image
-        (B,)). `row_offset`/`render_rows` render rows
+        perturbation, stochastic fine sampling and, where
+        `config.density_noise` is set, density noise of std `nerf_noise`;
+        None renders deterministically. `fov` overrides config.fov (scalar
+        or per-image (B,)). `row_offset`/`render_rows` render rows
         [row_offset, row_offset + render_rows) of the img_size-tall grid.
         Returns pixels (B, H, W, 3) in [-1, 1] and depth (B, H, W).
         """
@@ -124,26 +142,46 @@ class ImplicitGenerator3d(nn.Module):
         points, z_vals, rays_d_world, origins = transform_rays(
             points, z_vals, rays_d_cam, cam2world)
 
+        # the render's remaining random numbers, for the whole image at once
+        R = W * H
+        fine_u = noise1 = noise2 = None
+        if generator is not None:
+            draw = dict(generator=generator, dtype=z_vals.dtype, device=device)
+            if config.hierarchical_sample:
+                fine_u = torch.rand((B, R, S), **draw)
+            if config.density_noise:
+                noise1 = torch.randn((B, R, S, 1), **draw)
+                n_all = 2 * S if config.hierarchical_sample else S
+                noise2 = torch.randn((B, R, n_all, 1), **draw)
+        rays = [points, z_vals, rays_d_world, origins, fine_u, noise1, noise2]
+
         chunks = config.ray_chunks
         if chunks > 1:
-            R = W * H
             if R % chunks:
                 raise ValueError(f"ray_chunks={chunks} must divide {R} rays")
             r = R // chunks
+
+            def run_chunk(*chunk_rays):
+                return self._ray_pipeline(z, *chunk_rays[:4], config,
+                                          *chunk_rays[4:], nerf_noise)
+
+            remat = torch.is_grad_enabled()
             pixels, distances = [], []
-            with torch.no_grad():
-                for i in range(chunks):
-                    sl = slice(i * r, (i + 1) * r)
-                    pix, dist = self._ray_pipeline(
-                        z, points[:, sl], z_vals[:, sl], rays_d_world[:, sl],
-                        origins[:, sl], config, generator)
-                    pixels.append(pix)
-                    distances.append(dist)
+            for i in range(chunks):
+                sl = slice(i * r, (i + 1) * r)
+                chunk_rays = [None if t is None else t[:, sl] for t in rays]
+                if remat:  # keep only the chunk's inputs for the backward
+                    pix, dist = checkpoint(run_chunk, *chunk_rays,
+                                           use_reentrant=False)
+                else:
+                    pix, dist = run_chunk(*chunk_rays)
+                pixels.append(pix)
+                distances.append(dist)
             pixels = torch.cat(pixels, dim=1)
             distances = torch.cat(distances, dim=1)
         else:
-            pixels, distances = self._ray_pipeline(
-                z, points, z_vals, rays_d_world, origins, config, generator)
+            pixels, distances = self._ray_pipeline(z, *rays[:4], config,
+                                                   *rays[4:], nerf_noise)
 
         pixels = pixels.reshape(B, H, W, 3) * 2.0 - 1.0
         depth = distance2depth(distances, rays_d_cam).reshape(B, H, W)

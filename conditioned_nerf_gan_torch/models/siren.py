@@ -130,7 +130,9 @@ class ConditionedSiren(nn.Module):
                 and self.compute_dtype == torch.bfloat16)
 
     def forward(self, points: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        """points (B, N, 3) world points, z (B, z_dim) -> (B, N, 4)."""
+        """points (B, N, 3) world points, z (B, z_dim) -> (B, N, 4). Past
+        the gate, CUDA inputs go to the forward kernel, and with grad
+        enabled its backward is the backward kernel (`FilmSirenMLP`)."""
         freq, phase = self.mapping_network(z)
         freq = freq * 15.0 + 30.0
         if self.routes_to_kernel(freq):

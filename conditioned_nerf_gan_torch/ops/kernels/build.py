@@ -51,25 +51,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def load_library(name: str) -> KernelLibrary:
-    """Compile `csrc/<name>.cu` if its library is missing, then load it."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    seconds, log = 0.0, "(cached build)"
-    if not out.exists():
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_libraries(*names: str) -> list[KernelLibrary]:
+    """Compile every missing `csrc/<name>.cu`, one nvcc each, all started
+    together; then load them all."""
+    started = {}
+    for name in names:
+        out = _library_path(name)
+        if name in _LOADED or out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    for name, (proc, tmp, out, t0) in started.items():
+        log = proc.communicate()[0]
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
         os.replace(tmp, out)
-    _LOADED[name] = KernelLibrary(name, out, seconds, log)
-    return _LOADED[name]
+        _LOADED[name] = KernelLibrary(name, out, seconds, log)
+    for name in names:
+        if name not in _LOADED:
+            _LOADED[name] = KernelLibrary(name, _library_path(name), 0.0,
+                                          "(cached build)")
+    return [_LOADED[name] for name in names]
+
+
+def load_library(name: str) -> KernelLibrary:
+    """Compile `csrc/<name>.cu` if its library is missing, then load it."""
+    return load_libraries(name)[0]

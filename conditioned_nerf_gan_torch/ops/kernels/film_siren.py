@@ -1,22 +1,34 @@
-"""Fused FiLM-SIREN forward: the CUDA kernel's wrapper and its plain versions.
+"""Fused FiLM-SIREN forward and VJP: the CUDA kernels' wrappers and their
+plain versions.
 
-Port of conditioned_nerf_gan_tpu/ops/pallas/film_siren.py (forward only).
-The network, with per-batch-element freq/phase:
+Port of conditioned_nerf_gan_tpu/ops/pallas/film_siren.py. The network, with
+per-batch-element freq/phase:
     h_0 = sin(freq_0 * (x W_0 + b_0) + phase_0)
     h_l = sin(freq_l * (h_{l-1} W_l + b_l) + phase_l)
     out = h_{L-1} W_f + b_f                              (rgb + sigma, 4 ch)
 
-Three functions compute it:
+Forward:
   * `film_siren_mlp_reference`: fp32, exact `torch.sin`; what the wrapper
-    takes for CPU tensors, as the JAX wrapper does off the TPU.
+    takes for CPU tensors (under plain autograd), as the JAX wrapper does
+    off the TPU in both directions.
   * `film_siren_mlp_folded`: freq folded into the weights, operands rounded
     to `matmul_dtype` and multiplied in fp32, `sin7` — exactly the kernel's
     math, the comparator for the kernel on the card.
   * `film_siren_mlp`: the wrapper. On CUDA tensors it launches
-    `csrc/film_siren_fwd.cu` (sm_90a) or raises; it never falls back.
+    `csrc/film_siren_fwd.cu` (sm_90a) or raises; it never falls back. When
+    an input needs grad it goes through `FilmSirenMLP`, whose backward
+    launches `csrc/film_siren_bwd.cu`.
 
-The fold (`fold_film`) is plain torch outside the kernel, as it is outside
-`pallas_call` in the JAX package.
+Gradient:
+  * `film_siren_mlp_folded_vjp`: the plain version of the JAX
+    `_backward_kernel` (the same roundings of h, cos7(pre), g and every
+    dpre), the comparator for the backward kernel.
+  * `film_siren_mlp_bwd`: the backward kernel's wrapper.
+  * `unfold_film_grads`: folded-space grads back to (freq, phase, W, b);
+    tiny plain torch that both of the above call.
+
+The fold (`fold_film`) and its unwind are plain torch outside the kernels, as
+they are outside `pallas_call` in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +52,12 @@ _S7 = -1.4495299408e-04
 KERNEL_HIDDEN = 256
 KERNEL_IN = 3
 KERNEL_OUT = 4
+# csrc/film_siren_bwd.cu: points per sweep tile (the scratch is padded to a
+# multiple of it), the column padding of its point/cotangent scratch, and
+# the fewest points per weight-grad segment
+BWD_TILE = 128
+BWD_PAD_COLS = 16
+BWD_SEGMENT = 4096
 
 
 def sin7(x: torch.Tensor) -> torch.Tensor:
@@ -47,6 +65,15 @@ def sin7(x: torch.Tensor) -> torch.Tensor:
     x = x - torch.round(x * _INV_TWO_PI) * _TWO_PI
     x2 = x * x
     return x * (_S1 + x2 * (_S3 + x2 * (_S5 + x2 * _S7)))
+
+
+def cos7(x: torch.Tensor) -> torch.Tensor:
+    """d/dx sin7: the exact derivative of the kernel's forward (the range
+    reduction is a constant shift almost everywhere; `torch.round` has no
+    gradient)."""
+    x = x - torch.round(x * _INV_TWO_PI) * _TWO_PI
+    x2 = x * x
+    return _S1 + x2 * (3.0 * _S3 + x2 * (5.0 * _S5 + x2 * (7.0 * _S7)))
 
 
 def film_siren_mlp_reference(points, freq, phase, w0, b0, ws, bs, wf, bf):
@@ -101,19 +128,105 @@ def film_siren_mlp_folded(points, freq, phase, w0, b0, ws, bs, wf, bf,
     return (rnd(h) @ rnd(wf) + bf.to(accum_dtype)).float()
 
 
-def _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf):
+def unfold_film_grads(dw0f, dc0, dwsf, dcs, freq, w0, b0, ws, bs):
+    """Folded-space grads -> (dfreq, dphase, dw0, db0, dws, dbs).
+
+    With W_l^f = W_l diag(f_l) and c_l = f_l * b_l + phase_l (`fold_film`):
+    dW_l = sum_b dW_l^f f_l, df_l = sum_k W_l dW_l^f + dc_l b_l,
+    dphase_l = dc_l, db_l = sum_b dc_l f_l. The JAX `_backward_pallas`
+    epilogue (film_siren.py:400-410). dw0f (B, Din, H), dc0 (B, H),
+    dwsf (B, L-1, H, H), dcs (B, L-1, H); sums in their dtype.
+    """
+    B, L = freq.shape[0], 1 + ws.shape[0]
+    H = w0.shape[1]
+    f = freq.reshape(B, L, H).to(dw0f.dtype)
+    w0, b0, ws, bs = (t.to(dw0f.dtype) for t in (w0, b0, ws, bs))
+    dw0 = (dw0f * f[:, 0][:, None, :]).sum(0)
+    dws = (dwsf * f[:, 1:][:, :, None, :]).sum(0)
+    df0 = (dw0f * w0[None]).sum(1) + dc0 * b0[None]
+    dfs = (dwsf * ws[None]).sum(2) + dcs * bs[None]
+    dfreq = torch.cat([df0[:, None], dfs], dim=1).reshape(B, L * H)
+    dphase = torch.cat([dc0[:, None], dcs], dim=1).reshape(B, L * H)
+    db0 = (dc0 * f[:, 0]).sum(0)
+    dbs = (dcs * f[:, 1:]).sum(0)
+    return dfreq, dphase, dw0, db0, dws, dbs
+
+
+def film_siren_folded_grads(points, freq, phase, w0, b0, ws, bs, wf, bf, g,
+                            matmul_dtype=torch.bfloat16,
+                            accum_dtype=torch.float32):
+    """The JAX `_backward_kernel`'s math in plain torch, in folded space.
+
+    Recompute: h_l and cos7(pre_l) rounded to `matmul_dtype`; backward: g
+    and every dpre_l = dh_l * cos_l rounded to `matmul_dtype`; products of
+    rounded operands summed in `accum_dtype`. The bias grads are the
+    ones-row sums of dpre (film_siren.py:246-248). Returns, in accum_dtype,
+    dpoints (B, N, Din), dw0f (B, Din, H), dc0 (B, H), dwsf (B, L-1, H, H),
+    dcs (B, L-1, H), dwf_b (B, H, C), dbf_b (B, C) — the last two per batch
+    element, as the kernel writes them. Every sum is over points, so
+    callers may split N into chunks and add the results.
+    """
+    L = 1 + ws.shape[0]
+    w0f, c0, wsf, cs = fold_film(freq, phase, w0, b0, ws, bs, matmul_dtype)
+
+    def rnd(t):
+        return t.to(matmul_dtype).to(accum_dtype)
+
+    w0f, wsf = w0f.to(accum_dtype), wsf.to(accum_dtype)
+    c0, cs = c0.to(accum_dtype), cs.to(accum_dtype)
+    x = rnd(points)
+    pre = torch.bmm(x, w0f) + c0[:, None]
+    hs, coss = [rnd(sin7(pre))], [rnd(cos7(pre))]
+    for l in range(L - 1):
+        pre = torch.bmm(hs[-1], wsf[:, l]) + cs[:, l][:, None]
+        hs.append(rnd(sin7(pre)))
+        coss.append(rnd(cos7(pre)))
+
+    gb = rnd(g)
+    dwf_b = torch.bmm(hs[-1].transpose(1, 2), gb)
+    dbf_b = gb.sum(1)
+    dh = gb @ rnd(wf).t()
+    dwsf, dcs = [None] * (L - 1), [None] * (L - 1)
+    for l in range(L - 2, -1, -1):
+        dpre = rnd(dh * coss[l + 1])
+        dwsf[l] = torch.bmm(hs[l].transpose(1, 2), dpre)
+        dcs[l] = dpre.sum(1)
+        dh = torch.bmm(dpre, wsf[:, l].transpose(1, 2))
+    dpre0 = rnd(dh * coss[0])
+    dw0f = torch.bmm(x.transpose(1, 2), dpre0)
+    dc0 = dpre0.sum(1)
+    dpoints = torch.bmm(dpre0, w0f.transpose(1, 2))
+    return (dpoints, dw0f, dc0, torch.stack(dwsf, 1), torch.stack(dcs, 1),
+            dwf_b, dbf_b)
+
+
+def film_siren_mlp_folded_vjp(points, freq, phase, w0, b0, ws, bs, wf, bf, g,
+                              matmul_dtype=torch.bfloat16,
+                              accum_dtype=torch.float32):
+    """VJP of the kernel's forward math: the plain version of the JAX
+    `_backward_kernel` plus its fold unwind. g (B, N, C) is the cotangent
+    of the (B, N, C) output. Returns the nine fp32 grads (dpoints, dfreq,
+    dphase, dw0, db0, dws, dbs, dwf, dbf). accum_dtype=float64 keeps every
+    rounding and sums (and unwinds) near-exactly: the yardstick for
+    summation-order noise."""
+    dpoints, dw0f, dc0, dwsf, dcs, dwf_b, dbf_b = film_siren_folded_grads(
+        points, freq, phase, w0, b0, ws, bs, wf, bf, g, matmul_dtype, accum_dtype)
+    dfreq, dphase, dw0, db0, dws, dbs = unfold_film_grads(
+        dw0f, dc0, dwsf, dcs, freq, w0, b0, ws, bs)
+    grads = (dpoints, dfreq, dphase, dw0, db0, dws, dbs, dwf_b.sum(0), dbf_b.sum(0))
+    return tuple(t.float() for t in grads)
+
+
+def _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf,
+                        name="film_siren_mlp"):
     args = dict(points=points, freq=freq, phase=phase, w0=w0, b0=b0, ws=ws,
                 bs=bs, wf=wf, bf=bf)
-    for name, t in args.items():
+    for arg, t in args.items():
         if t.device != points.device:
-            raise ValueError(f"film_siren_mlp: {name} is on {t.device}, "
+            raise ValueError(f"{name}: {arg} is on {t.device}, "
                              f"points on {points.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"film_siren_mlp: {name} must be float32, got {t.dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args.values()):
-        raise RuntimeError(
-            "film_siren_mlp: the CUDA kernel is forward-only (its backward "
-            "kernel is ROADMAP B2); call it under torch.no_grad()")
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
     B, N, _ = points.shape
     L = 1 + ws.shape[0]
     H = w0.shape[1]
@@ -122,58 +235,164 @@ def _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf):
                     ws=(L - 1, KERNEL_HIDDEN, KERNEL_HIDDEN),
                     bs=(L - 1, KERNEL_HIDDEN), wf=(KERNEL_HIDDEN, KERNEL_OUT),
                     bf=(KERNEL_OUT,))
-    for name, shape in expected.items():
-        if tuple(args[name].shape) != shape:
-            raise ValueError(f"film_siren_mlp: {name} has shape "
-                             f"{tuple(args[name].shape)}, the kernel takes {shape}")
+    for arg, shape in expected.items():
+        if tuple(args[arg].shape) != shape:
+            raise ValueError(f"{name}: {arg} has shape "
+                             f"{tuple(args[arg].shape)}, the kernel takes {shape}")
     if L < 2:
-        raise ValueError("film_siren_mlp: the kernel needs at least 2 layers")
+        raise ValueError(f"{name}: the kernel needs at least 2 layers")
     if not points.is_contiguous():
-        raise ValueError("film_siren_mlp: points must be contiguous")
+        raise ValueError(f"{name}: points must be contiguous")
     if B > 65535 or N >= 2 ** 31 - 128:
-        raise ValueError(f"film_siren_mlp: B={B}, N={N} exceed the launch grid")
+        raise ValueError(f"{name}: B={B}, N={N} exceed the launch grid")
 
 
-def _launch(points, w0f, c, wsf, wf16, bf, out):
+def _fold_for_kernel(freq, phase, w0, b0, ws, bs):
+    """The folded operands as the kernels read them: w0f (B, 3, H) and wsf
+    (B, L-1, H, H) bf16, c (B, L, H) fp32 (c_0 then c_1..)."""
+    w0f, c0, wsf, cs = fold_film(freq, phase, w0, b0, ws, bs, torch.bfloat16)
+    c = torch.cat([c0[:, None], cs], dim=1).contiguous()
+    return w0f.contiguous(), c, wsf.contiguous()
+
+
+def _c_function(library, symbol, n_pointers, n_ints):
     from .build import load_library
 
-    fn = load_library("film_siren_fwd").lib.film_siren_fwd
+    fn = getattr(load_library(library).lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    return fn
+
+
+def _forward_kernel(points, freq, phase, w0, b0, ws, bs, wf, bf):
+    """Launch K1 on checked inputs -> (B, N, 4) fp32."""
+    fn = _c_function("film_siren_fwd", "film_siren_fwd", 7, 3)
+    w0f, c, wsf = _fold_for_kernel(freq, phase, w0, b0, ws, bs)
+    wf16 = wf.to(torch.bfloat16).contiguous()
+    bf = bf.contiguous()
     B, N, _ = points.shape
-    L = c.shape[1]
+    out = torch.empty(B, N, KERNEL_OUT, dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):  # launch on the tensors' card
         stream = torch.cuda.current_stream(points.device).cuda_stream
         err = fn(points.data_ptr(), w0f.data_ptr(), c.data_ptr(), wsf.data_ptr(),
-                 wf16.data_ptr(), bf.data_ptr(), out.data_ptr(), B, N, L, stream)
+                 wf16.data_ptr(), bf.data_ptr(), out.data_ptr(), B, N, c.shape[1],
+                 stream)
     if err != 0:
         raise RuntimeError(f"film_siren_fwd launch failed: cudaError {err}")
+    film_siren_mlp.launches += 1
+    return out
+
+
+class FilmSirenMLP(torch.autograd.Function):
+    """The kernels as one differentiable op: the forward launches K1 and
+    saves only the nine inputs; the backward launches K2, which recomputes
+    the forward inside the kernel (the JAX custom VJP's residuals)."""
+
+    @staticmethod
+    def forward(ctx, points, freq, phase, w0, b0, ws, bs, wf, bf):
+        ctx.save_for_backward(points, freq, phase, w0, b0, ws, bs, wf, bf)
+        return _forward_kernel(points, freq, phase, w0, b0, ws, bs, wf, bf)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = film_siren_mlp_bwd(*ctx.saved_tensors, g)
+        return tuple(d if need else None
+                     for d, need in zip(grads, ctx.needs_input_grad))
 
 
 def film_siren_mlp(points, freq, phase, w0, b0, ws, bs, wf, bf):
     """Fused FiLM-SIREN forward -> (B, N, 4) fp32.
 
     CUDA tensors go to the hand-written kernel (bf16 operands, fp32
-    accumulation, sin7 — the math of `film_siren_mlp_folded`); anything
-    the kernel does not take raises. CPU tensors take the fp32 reference,
+    accumulation, sin7 — the math of `film_siren_mlp_folded`), through
+    `FilmSirenMLP` when an input needs grad; anything the kernel does not
+    take raises. CPU tensors take the fp32 reference under plain autograd,
     as the JAX wrapper does off the TPU. `film_siren_mlp.launches` counts
-    kernel launches.
+    forward kernel launches.
     """
     if points.device.type == "cpu":
         return film_siren_mlp_reference(points, freq, phase, w0, b0, ws, bs, wf, bf)
     if points.device.type != "cuda":
         raise ValueError(f"film_siren_mlp: no kernel for device {points.device}")
-    _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf)
-    w0f, c0, wsf, cs = fold_film(freq, phase, w0, b0, ws, bs, torch.bfloat16)
-    c = torch.cat([c0[:, None], cs], dim=1).contiguous()
-    wf16 = wf.to(torch.bfloat16).contiguous()
-    out = torch.empty(points.shape[0], points.shape[1], KERNEL_OUT,
-                      dtype=torch.float32, device=points.device)
-    _launch(points, w0f.contiguous(), c, wsf.contiguous(), wf16,
-            bf.contiguous(), out)
-    film_siren_mlp.launches += 1
-    return out
+    args = (points, freq, phase, w0, b0, ws, bs, wf, bf)
+    _check_kernel_inputs(*args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return FilmSirenMLP.apply(*args)
+    return _forward_kernel(*args)
 
 
 film_siren_mlp.launches = 0
+
+
+def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
+    """VJP of `film_siren_mlp`'s kernel math -> the nine fp32 grads
+    (dpoints, dfreq, dphase, dw0, db0, dws, dbs, dwf, dbf).
+
+    CUDA tensors go to the hand-written backward kernel
+    (`csrc/film_siren_bwd.cu`): a recompute-and-sweep pass that writes dX
+    and the bf16 h_l / dpre_l, then the folded weight grads summed over
+    points in a fixed order (deterministic), then `unfold_film_grads`. The
+    cotangent g (B, N, 4) may be any strided view; it is made contiguous
+    here. CPU tensors take `film_siren_mlp_folded_vjp`.
+    `film_siren_mlp_bwd.launches` counts kernel launches.
+    """
+    args = (points, freq, phase, w0, b0, ws, bs, wf, bf)
+    if points.device.type == "cpu":
+        return film_siren_mlp_folded_vjp(*args, g)
+    if points.device.type != "cuda":
+        raise ValueError(f"film_siren_mlp_bwd: no kernel for device {points.device}")
+    _check_kernel_inputs(*args, name="film_siren_mlp_bwd")
+    B, N, _ = points.shape
+    if g.device != points.device or g.dtype != torch.float32:
+        raise TypeError(f"film_siren_mlp_bwd: g must be float32 on {points.device}, "
+                        f"got {g.dtype} on {g.device}")
+    if tuple(g.shape) != (B, N, KERNEL_OUT):
+        raise ValueError(f"film_siren_mlp_bwd: g has shape {tuple(g.shape)}, "
+                         f"the kernel takes {(B, N, KERNEL_OUT)}")
+    fn = _c_function("film_siren_bwd", "film_siren_bwd", 14, 4)
+    w0f, c, wsf = _fold_for_kernel(freq, phase, w0, b0, ws, bs)
+    wsf_t = wsf.transpose(-1, -2).contiguous()  # the backward sweep reads W^T
+    wf16 = wf.to(torch.bfloat16).contiguous()
+    g = g.contiguous()
+    L = c.shape[1]
+    H, C = KERNEL_HIDDEN, KERNEL_OUT
+    n_pad = -(-N // BWD_TILE) * BWD_TILE
+    # weight-grad segments: >= BWD_SEGMENT points each, <= 65535 launch rows
+    n_seg = min(-(-n_pad // BWD_SEGMENT), 65535 // B)
+    seg = -(-n_pad // (n_seg * BWD_TILE)) * BWD_TILE
+    n_seg = -(-n_pad // seg)
+    dev = points.device
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    # scratch: bf16 h_l and dpre_l for every (padded) point, and the
+    # bf16-rounded points and cotangent padded to 16 columns
+    hbuf = torch.empty(B, L, n_pad, H, **bf16)
+    pbuf = torch.empty(B, L, n_pad, H, **bf16)
+    xbuf = torch.empty(B, n_pad, BWD_PAD_COLS, **bf16)
+    gbuf = torch.empty(B, n_pad, BWD_PAD_COLS, **bf16)
+    dpoints = torch.empty(B, N, KERNEL_IN, dtype=torch.float32, device=dev)
+    # the folded grads of every batch element in one block, in the kernel's
+    # order; with several segments, one partial block per segment
+    shapes = ((B, L - 1, H, H), (B, L - 1, H), (B, KERNEL_IN, H), (B, H), (B, H, C),
+              (B, C))
+    sizes = [math.prod(shape) for shape in shapes]
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    part = (grads if n_seg == 1 else
+            torch.empty(n_seg, sum(sizes), dtype=torch.float32, device=dev))
+    ptrs = (points, g, w0f, c, wsf, wsf_t, wf16, hbuf, pbuf, xbuf, gbuf, dpoints,
+            part, grads)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in ptrs), B, N, L, seg, stream)
+    if err != 0:
+        raise RuntimeError(f"film_siren_bwd launch failed: cudaError {err}")
+    film_siren_mlp_bwd.launches += 1
+    dwsf, dcs, dw0f, dc0, dwf_b, dbf_b = (
+        t.view(shape) for t, shape in zip(grads.split(sizes), shapes))
+    dfreq, dphase, dw0, db0, dws, dbs = unfold_film_grads(
+        dw0f, dc0, dwsf, dcs, freq, w0, b0, ws, bs)
+    return dpoints, dfreq, dphase, dw0, db0, dws, dbs, dwf_b.sum(0), dbf_b.sum(0)
+
+
+film_siren_mlp_bwd.launches = 0
