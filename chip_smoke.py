@@ -10,6 +10,8 @@ Refuses to run without CUDA (exit 1). Otherwise:
      (`film_siren_mlp_folded`, same bf16-operand math) at the thesis render
      shape, at the ray-chunk shape the main path gives it, and at a ragged N,
      and times both with CUDA events;
+ 1b. the same at the voxel family's shape (Din 32, 8 layers) at 2 x 786,432
+     and a ragged 2 x 1,000;
   2. drives the port's serving path: the thesis model (`thousand` preset +
      special.py: PointNet 512/512, SHORTSIREN z 512, 4 x 256) with seeded
      random weights is saved as a port checkpoint, loaded by `Inferencer`,
@@ -31,10 +33,24 @@ Refuses to run without CUDA (exit 1). Otherwise:
      `make_train_step`: one warm-up and three timed steps (s/step, peak
      memory, kernel launches per step against the design's count), finite
      losses, all three nets moved, one step against the same step with the
-     plain versions in both kernels' places, and one profiled step.
+     plain versions in both kernels' places, and one profiled step;
+  6. holds the trilinear-sampling kernel against its plain torch version
+     (`border_trilerp_reference`, the same fp32 lerps) on a 2 x 64^3 x 32
+     feature volume at 2 x 786,432 points, at a ragged 2 x 1,000 and on
+     points outside the cube and on its faces, and times both (with
+     `F.grid_sample` beside them as a yardstick);
+  7. drives the voxel-conditioned serving path: the `dg` preset (UNet3D
+     4 -> 32, f_maps 32, 4 levels; TALLSIREN_FG, 8 x 256 on 32 sampled
+     features) at step 30000 with seeded random weights, saved as a port
+     run, loaded by `Inferencer`, answers 4 requests (2 voxelised point
+     clouds at 64^3 each) through `encode` -> `render_batched` at 128^2 with
+     48 + 48 samples: launches of both kernels per request against the
+     design's count, finite output in range, one render against the same
+     render with both plain versions in the kernels' places, and one
+     profiled request.
 Prints one JSON line of kernel results, then the last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit);
-checks of phases 4 and 5 raise after phase 5, so one run reports them all.
+checks of phases 1b and 4-7 raise after phase 7, so one run reports them all.
 """
 
 from __future__ import annotations
@@ -71,6 +87,23 @@ RENDER_TOL = 2e-2
 RENDER_MEAN_TOL = 2e-4  # [5.2e-7; 3.2e-5 with one flipped pixel]
 RENDER_OVER_SHARE = 3e-4  # [0; 3.1e-5 = 1 pixel of 32,768]
 THESIS_STEP = 30000  # a step in the last curriculum stage: ray_chunks 16
+# Phase 1b bounds: K1 at Din 32 and L 8 against `film_siren_mlp_folded`
+# (inputs at TALLSIREN_FG's init, whose head is 10x smaller than phase 1's),
+# in phase 1's style, each about twice the kernel's H100 reading [in
+# brackets: the larger of the two shapes]. As in phase 1 the max at freq
+# 25-45 is set by the plain version's own fp32 noise (3.1e-3 from fp64 sums
+# at 2 x 786,432, as far as the kernel's).
+DIN32_LOW_TOL = 5e-5  # freq/30, max|kernel - folded| [2.21e-5]
+DIN32_MEAN_TOL = 5e-5  # freq 25-45, mean|kernel - folded| [2.36e-5]
+DIN32_Q999_TOL = 2e-3  # 99.9th percentile of |kernel - folded| [9.36e-4]
+DIN32_VS_PLAIN = 1.25  # max|kernel - fp64 sums| / max|folded - fp64 sums| [1.000]
+# Phase 6: the kernel and `border_trilerp_reference` round the same fp32
+# lerps in the same order, so they should agree to the bit; the bound is
+# relative to the volume's largest value.
+TRILERP_TOL = 1e-5  # max|kernel - plain| / max|volume|
+VOXEL_RES = 64
+VOXEL_PCL_POINTS = 16384
+DG_STEP = 30000  # stage 3 of the dg curriculum: ray_chunks 16
 # Phase 4 bounds for each of the nine grads of the backward kernel against
 # `film_siren_mlp_folded_vjp` (same bf16 roundings of h, cos7, g and dpre;
 # fp32 sums in another order), each about twice the sound kernel's H100
@@ -139,9 +172,34 @@ def kernel_inputs(B: int, N: int, seed: int, device) -> dict[str, torch.Tensor]:
             for k, v in arrays.items()}
 
 
-def check_kernel(label: str, inp: dict[str, torch.Tensor]) -> float:
+def voxel_kernel_inputs(B: int, N: int, seed: int, device) -> dict[str, torch.Tensor]:
+    """Seeded inputs at the voxel family's shape and init (TALLSIREN_FG: 32
+    sampled features in, 8 layers of 256; first layer U(+-1/32), the rest
+    U(+-sqrt(6/256)/25), the head likewise), features in [-1, 1]."""
+    H, L, C, DIN = 256, 8, 4, 32
+    trunk = np.sqrt(6 / H) / 25
+    rng = np.random.default_rng(seed)
+    arrays = dict(
+        points=rng.uniform(-1, 1, (B, N, DIN)),
+        freq=rng.uniform(25, 45, (B, L * H)),
+        phase=rng.uniform(-1, 1, (B, L * H)),
+        w0=rng.uniform(-1 / DIN, 1 / DIN, (DIN, H)),
+        b0=rng.uniform(-1 / np.sqrt(DIN), 1 / np.sqrt(DIN), (H,)),
+        ws=rng.uniform(-trunk, trunk, (L - 1, H, H)),
+        bs=rng.uniform(-1 / 16, 1 / 16, (L - 1, H)),
+        wf=rng.uniform(-trunk, trunk, (H, C)),
+        bf=rng.uniform(-1 / 16, 1 / 16, (C,)),
+    )
+    return {k: torch.from_numpy(v.astype(np.float32)).to(device)
+            for k, v in arrays.items()}
+
+
+def check_kernel(label: str, inp: dict[str, torch.Tensor], phase: str = "phase 1",
+                 bounds=(KERNEL_LOW_TOL, KERNEL_MEAN_TOL, KERNEL_Q999_TOL,
+                         KERNEL_VS_PLAIN)) -> tuple[float, str | None]:
     """Hold the kernel against `film_siren_mlp_folded` (same bf16 operands,
-    fp32 sums in another order); returns max|kernel - folded| at freq 25-45.
+    fp32 sums in another order); returns max|kernel - folded| at freq 25-45
+    and a failure message (None when every bound holds).
 
     At freq 25-45 the max over ~1e6 points is set by the plain version's
     own summation noise, so the script also sums the same bf16-rounded math
@@ -165,19 +223,22 @@ def check_kernel(label: str, inp: dict[str, torch.Tensor]) -> float:
     low = dict(inp, freq=inp["freq"] / 30.0)
     err_low = (film_siren_mlp(*low.values())
                - film_siren_mlp_folded(*low.values())).abs().max().item()
-    B, N, _ = inp["points"].shape
-    print(f"phase 1 [{label}] B={B} N={N}: freq/30: max|kernel - folded| "
-          f"{err_low:.3e} (bound {KERNEL_LOW_TOL}); freq 25-45: max|kernel - folded| "
+    B, N, din = inp["points"].shape
+    low_tol, mean_tol, q999_tol, vs_plain = bounds
+    print(f"{phase} [{label}] B={B} N={N} Din={din} L={inp['freq'].shape[1] // 256}: "
+          f"freq/30: max|kernel - folded| "
+          f"{err_low:.3e} (bound {low_tol}); freq 25-45: max|kernel - folded| "
           f"{err.max().item():.3e}, mean {err.mean().item():.3e} (bound "
-          f"{KERNEL_MEAN_TOL}), p99.9 {q999:.3e} (bound {KERNEL_Q999_TOL}), "
+          f"{mean_tol}), p99.9 {q999:.3e} (bound {q999_tol}), "
           f"max|kernel - fp64-sum| {k64:.3e} vs max|folded - fp64-sum| {p64:.3e} "
-          f"(ratio {k64 / p64:.3f}, bound {KERNEL_VS_PLAIN}), "
+          f"(ratio {k64 / p64:.3f}, bound {vs_plain}), "
           f"max|kernel - fp32 exact-sin ref| {err_ref:.3e}")
-    if not (torch.isfinite(out).all() and err_low < KERNEL_LOW_TOL
-            and err.mean().item() < KERNEL_MEAN_TOL and q999 < KERNEL_Q999_TOL
-            and k64 <= KERNEL_VS_PLAIN * p64):
-        raise AssertionError(f"kernel disagrees with its plain version at {label}")
-    return err.max().item()
+    failure = None
+    if not (torch.isfinite(out).all() and err_low < low_tol
+            and err.mean().item() < mean_tol and q999 < q999_tol
+            and k64 <= vs_plain * p64):
+        failure = f"{phase}: kernel disagrees with its plain version at {label}"
+    return err.max().item(), failure
 
 
 def phase1_kernel(device) -> dict:
@@ -194,7 +255,10 @@ def phase1_kernel(device) -> dict:
     with torch.no_grad():
         for label, B, N in shapes:
             inp = kernel_inputs(B, N, seed=0, device=device)
-            worst = max(worst, check_kernel(label, inp))
+            err, failure = check_kernel(label, inp)
+            if failure:
+                raise AssertionError(failure)
+            worst = max(worst, err)
             iters = 20 if N > 100_000 else 50
             ms = cuda_ms(lambda: film_siren_mlp(*inp.values()), iters)
             plain_ms = cuda_ms(lambda: film_siren_mlp_folded(*inp.values()),
@@ -210,11 +274,48 @@ def phase1_kernel(device) -> dict:
                 launches=0, max_abs_err=worst, **row)
 
 
-def make_pcl(rng: np.random.Generator, n_boxes: int = 3) -> np.ndarray:
-    """One colored point cloud (PCL_POINTS, 6) [xyz, rgb]: points on the
+def phase1b_kernel_din32(device, failures: list) -> dict:
+    """K1 at the voxel family's shape (32 sampled features, 8 layers) vs
+    plain folded, at the study size and a ragged N; returns the JSON row."""
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp,
+        film_siren_mlp_folded,
+    )
+
+    shapes = [("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48), ("ragged", 2, 1000)]
+    bounds = (DIN32_LOW_TOL, DIN32_MEAN_TOL, DIN32_Q999_TOL, DIN32_VS_PLAIN)
+    worst, row = 0.0, {}
+    with torch.no_grad():
+        for label, B, N in shapes:
+            inp = voxel_kernel_inputs(B, N, seed=1, device=device)
+            err, failure = check_kernel(label, inp, "phase 1b", bounds)
+            if failure:
+                failures.append(failure)
+            worst = max(worst, err)
+            iters = 10 if N > 100_000 else 50
+            ms = cuda_ms(lambda: film_siren_mlp(*inp.values()), iters)
+            plain_ms = cuda_ms(lambda: film_siren_mlp_folded(*inp.values()),
+                               max(3, iters // 5))
+            flop = 2 * B * N * 256 * (32 + 7 * 256 + 4)
+            print(f"phase 1b [{label}] time: kernel {ms:.4f} ms, plain folded "
+                  f"{plain_ms:.4f} ms ({B * N / ms / 1e3:.1f} Mpoints/s, "
+                  f"{flop / ms / 1e9:.1f} TFLOP/s kernel)")
+            if label == "study":
+                row = dict(ms=ms, plain_ms=plain_ms)
+            del inp
+            torch.cuda.empty_cache()
+    return dict(name="film_siren_fwd_din32", route="cuda",
+                source="conditioned_nerf_gan_torch/csrc/film_siren_fwd.cu",
+                replaces="conditioned_nerf_gan_tpu/ops/pallas/film_siren.py:156",
+                launches=0, max_abs_err=worst, **row)
+
+
+def make_pcl(rng: np.random.Generator, n_boxes: int = 3,
+             n_points: int = PCL_POINTS) -> np.ndarray:
+    """One colored point cloud (n_points, 6) [xyz, rgb]: points on the
     faces of a few colored boxes inside the +-0.35 cube, a car-like
     stand-in for a ShapeNet cloud."""
-    per_box = -(-PCL_POINTS // n_boxes)
+    per_box = -(-n_points // n_boxes)
     parts = []
     for _ in range(n_boxes):
         center, half = rng.uniform(-0.2, 0.2, 3), rng.uniform(0.06, 0.18, 3)
@@ -223,7 +324,7 @@ def make_pcl(rng: np.random.Generator, n_boxes: int = 3) -> np.ndarray:
         u[np.arange(per_box), face // 2] = np.where(face % 2 == 0, 1.0, -1.0)
         color = np.broadcast_to(rng.uniform(0.1, 1.0, 3), (per_box, 3))
         parts.append(np.concatenate([center + u * half, color], axis=1))
-    return np.concatenate(parts)[:PCL_POINTS].astype(np.float32)
+    return np.concatenate(parts)[:n_points].astype(np.float32)
 
 
 def make_requests(meta: dict, n: int, seed: int):
@@ -242,16 +343,17 @@ def make_requests(meta: dict, n: int, seed: int):
         origins = sample_camera_positions(BATCH, generator=gen,
                                           cam_r_start=meta["cam_r_start"],
                                           cam_r_end=meta["cam_r_end"])
-        requests.append((pcl, create_cam2world_matrix(origins).numpy()))
+        requests.append(({"pcl": pcl}, create_cam2world_matrix(origins).numpy()))
     return requests
 
 
-def serve(inf, pcl, cams):
-    """One request through the main path: encode, then render; returns the
-    encode and render seconds (host clock to a device sync) and the render."""
+def serve(inf, cond, cams):
+    """One request through the main path: encode the conditioning ({"pcl"}
+    or {"voxel"}), then render; returns the encode and render seconds (host
+    clock to a device sync), the conditioning and the render."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    z = inf.encode({"pcl": pcl})
+    z = inf.encode(cond)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     rgb, depth = inf.render_batched(z, cams, z_batched=True)
@@ -293,8 +395,8 @@ def phase2_serve(device, build_dir):
     torch.cuda.reset_peak_memory_stats()
     outputs = []
     film_siren_mlp.launches = 0
-    for i, (pcl, cams) in enumerate(requests):
-        t_enc, t_render, z, rgb, depth = serve(inf, pcl, cams)
+    for i, (cond, cams) in enumerate(requests):
+        t_enc, t_render, z, rgb, depth = serve(inf, cond, cams)
         dt = t_enc + t_render
         print(f"phase 2 request {i}: {dt:.4f} s (encode {t_enc * 1e3:.3f} ms, "
               f"render {t_render * 1e3:.3f} ms), "
@@ -365,27 +467,28 @@ def print_top(phase: str, by_name: dict, n: int = 8) -> None:
         print(f"{phase}:   {us / 1e3:9.3f} ms in {count:4d} x {name[:90]}")
 
 
-def phase3_profile(inf, request, unprofiled_s: float) -> None:
+def phase3_profile(inf, request, unprofiled_s: float, phase: str = "phase 3") -> None:
     """The last request once more under torch.profiler (device activity
     only): device busy time, its share of that request's wall time with and
-    without the profiler (phase 2's run of it), and the largest kernels.
-    The profiler slows the host, not the device, so the share against the
-    unprofiled wall time is the estimate; the other bounds it from below."""
+    without the profiler (the serving phase's run of it), and the largest
+    kernels. The profiler slows the host, not the device, so the share
+    against the unprofiled wall time is the estimate; the other bounds it
+    from below."""
     times = []
     profiled = profile_device(lambda: times.append(serve(inf, *request)))
     if profiled is None:
-        print("phase 3: the profiler recorded no device activity; busy share "
+        print(f"{phase}: the profiler recorded no device activity; busy share "
               "not measured")
         return
     n_events, busy_ms, by_name = profiled
     t_enc, t_render, *_ = times[0]
     wall_ms = (t_enc + t_render) * 1e3
-    print(f"phase 3: {n_events} device activities, device busy {busy_ms:.3f} ms; "
+    print(f"{phase}: {n_events} device activities, device busy {busy_ms:.3f} ms; "
           f"busy share {busy_ms / (unprofiled_s * 1e3):.4f} of the unprofiled "
           f"{unprofiled_s * 1e3:.3f} ms (idle {1 - busy_ms / (unprofiled_s * 1e3):.4f}), "
           f"{busy_ms / wall_ms:.4f} of the profiled {wall_ms:.3f} ms "
           f"(encode {t_enc * 1e3:.3f} ms)")
-    print_top("phase 3", by_name)
+    print_top(phase, by_name, n=12)
 
 
 def bwd_inputs(B: int, N: int, seed: int, device):
@@ -663,6 +766,225 @@ def phase5_train(device, failures: list) -> tuple[int, int]:
     return fwd_total, bwd_total
 
 
+def trilerp_points(B: int, N: int, seed: int, device, border: bool = False):
+    """(B, N, 3) world points, uniform in the +-0.6 cube from the seed; with
+    `border`, a third of them as far as +-0.9 (outside the cube: the border
+    clamp) and a third with one coordinate exactly on a face (+-0.6)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.6, 0.6, (B, N, 3))
+    if border:
+        third = N // 3
+        pts[:, :third] = rng.uniform(-0.9, 0.9, (B, third, 3))
+        axis = rng.integers(0, 3, (B, third))
+        face = rng.choice([-0.6, 0.6], (B, third))
+        rows = pts[:, third:2 * third]
+        np.put_along_axis(rows, axis[..., None], face[..., None], axis=-1)
+    return torch.from_numpy(pts.astype(np.float32)).to(device)
+
+
+def phase6_trilinear(device, failures: list) -> dict:
+    """The trilinear kernel vs `border_trilerp_reference` on a 2 x 64^3 x 32
+    volume (the dg feature volume's shape) at three point sets; returns the
+    JSON row (times at the study size)."""
+    import torch.nn.functional as F
+
+    from conditioned_nerf_gan_torch.models.siren import VOXEL_LENGTH
+    from conditioned_nerf_gan_torch.ops.grid_sample import (
+        border_trilerp_reference,
+        trilinear_point_features,
+    )
+
+    B, C = 2, 32
+    rng = np.random.default_rng(2)
+    volume = torch.from_numpy(rng.normal(0, 1, (B, VOXEL_RES, VOXEL_RES, VOXEL_RES, C))
+                              .astype(np.float32)).to(device)
+    vol_max = volume.abs().max().item()
+    volume_ncdhw = volume.permute(0, 4, 1, 2, 3).contiguous()
+    sets = [("study", IMAGE_SIZE * IMAGE_SIZE * 48, False), ("ragged", 1000, False),
+            ("border", 300_000, True)]
+    worst, row = 0.0, {}
+    with torch.no_grad():
+        for label, N, border in sets:
+            coords = trilerp_points(B, N, seed=3, device=device, border=border) / (
+                VOXEL_LENGTH / 2.0)
+            out = trilinear_point_features(volume, coords)
+            plain = border_trilerp_reference(volume, coords)
+            err = (out - plain).abs().max().item()
+            worst = max(worst, err)
+            grid = coords[:, None, None]  # (B, 1, 1, N, 3)
+            gs = F.grid_sample(volume_ncdhw, grid, mode="bilinear", padding_mode="border",
+                               align_corners=False)[:, :, 0, 0].transpose(1, 2)
+            gs_err = (out - gs).abs().max().item()
+            outside = (coords.abs() > 1).any(-1).float().mean().item()
+            print(f"phase 6 [{label}] B={B} N={N} volume {VOXEL_RES}^3 x {C}: "
+                  f"max|kernel - plain| {err:.3e} (bound {TRILERP_TOL} x max|volume| "
+                  f"{vol_max:.3f}), max|kernel - F.grid_sample| {gs_err:.3e}, share of "
+                  f"points outside the cube {outside:.3f}")
+            if not (torch.isfinite(out).all() and err <= TRILERP_TOL * vol_max):
+                failures.append(f"phase 6 [{label}]: kernel disagrees with its plain version")
+            iters = 20 if N > 100_000 else 50
+            ms = cuda_ms(lambda: trilinear_point_features(volume, coords), iters)
+            plain_ms = cuda_ms(lambda: border_trilerp_reference(volume, coords),
+                               max(3, iters // 5))
+            gs_ms = cuda_ms(lambda: F.grid_sample(volume_ncdhw, grid, mode="bilinear",
+                                                  padding_mode="border",
+                                                  align_corners=False), iters)
+            gathered = B * N * 8 * C * 4
+            print(f"phase 6 [{label}] time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"F.grid_sample (NCDHW, yardstick) {gs_ms:.4f} ms; kernel "
+                  f"{B * N / ms / 1e3:.1f} Mpoints/s, {gathered / ms / 1e6:.1f} GB/s of "
+                  f"corner reads")
+            if label == "study":
+                row = dict(ms=ms, plain_ms=plain_ms, grid_sample_ms=gs_ms)
+            del coords, out, plain, gs
+    del volume, volume_ncdhw
+    torch.cuda.empty_cache()
+    return dict(name="trilinear_fwd", route="cuda",
+                source="conditioned_nerf_gan_torch/csrc/trilinear_fwd.cu",
+                replaces="scripts/bench_pallas_gather.py:42",
+                launches=0, max_abs_err=worst, **row)
+
+
+def voxelize(pcl: np.ndarray, resolution: int, length: float = 1.2) -> np.ndarray:
+    """(P, 6) colored points -> (R, R, R, 4) [occupancy, r, g, b] in (x, y,
+    z) order: the rule of the repo's voxelize_pcl (clip into the cube, floor
+    to a cell, mean color per occupied cell)."""
+    points = np.clip(pcl[:, :3].astype(np.float64), -length / 2 + 1e-4, length / 2 - 1e-4)
+    colors = np.clip(pcl[:, 3:].astype(np.float64), 0.0, 1.0)
+    idx = np.clip(np.floor((points + length / 2) / (length / resolution)).astype(np.int64),
+                  0, resolution - 1)
+    flat = (idx[:, 0] * resolution + idx[:, 1]) * resolution + idx[:, 2]
+    color_sum = np.zeros((resolution ** 3, 3))
+    count = np.zeros(resolution ** 3)
+    np.add.at(color_sum, flat, colors)
+    np.add.at(count, flat, 1.0)
+    voxel = np.zeros((resolution ** 3, 4))
+    occupied = count > 0
+    voxel[occupied, 0] = 1.0
+    voxel[occupied, 1:] = color_sum[occupied] / count[occupied, None]
+    return voxel.reshape(resolution, resolution, resolution, 4)
+
+
+def make_voxel_requests(meta: dict, n: int, seed: int):
+    """n requests of BATCH voxel grids (seeded `make_pcl` clouds voxelised
+    at VOXEL_RES, put in NDHWC by the port's helper) with cameras."""
+    from conditioned_nerf_gan_torch.infer import voxel_to_ndhwc
+    from conditioned_nerf_gan_torch.ops.rays import (
+        create_cam2world_matrix,
+        sample_camera_positions,
+    )
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    requests = []
+    for _ in range(n):
+        voxel = np.stack([voxel_to_ndhwc(voxelize(make_pcl(rng, n_points=VOXEL_PCL_POINTS),
+                                                  VOXEL_RES)) for _ in range(BATCH)])
+        origins = sample_camera_positions(BATCH, generator=gen,
+                                          cam_r_start=meta["cam_r_start"],
+                                          cam_r_end=meta["cam_r_end"])
+        requests.append(({"voxel": voxel}, create_cam2world_matrix(origins).numpy()))
+    return requests
+
+
+def phase7_dg_serve(device, build_dir, failures: list):
+    """Serve REQUESTS requests of the dg preset through the port's
+    Inferencer; returns the two kernels' launches in the main path's run,
+    the Inferencer, and the last request with its seconds."""
+    import conditioned_nerf_gan_torch.models.siren as siren_module
+    from conditioned_nerf_gan_torch.infer import (
+        Inferencer,
+        build_models,
+        load_metadata,
+        save_checkpoint,
+    )
+    from conditioned_nerf_gan_torch.ops.grid_sample import (
+        border_trilerp_reference,
+        trilinear_point_features,
+    )
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp,
+        film_siren_mlp_folded,
+    )
+
+    meta = load_metadata(DG_STEP, config="dg")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        G, E = build_models(meta, generator=torch.Generator().manual_seed(0))
+        ckpt = save_checkpoint(f"{tmp}/run/checkpoints/{DG_STEP}.pt", DG_STEP, G, E,
+                               config="dg")
+        inf = Inferencer(ckpt, num_imgs=BATCH, image_size=IMAGE_SIZE,
+                         input_voxel_resolution=VOXEL_RES, load_dataset=False, seed=0,
+                         device=device)
+    cur = inf.curriculum
+    chunks = cur.get("ray_chunks", 0)
+    print(f"phase 7: dg preset, step {DG_STEP}: {cur['unet']} -> "
+          f"{cur['generator']}, {IMAGE_SIZE}^2, {cur['num_steps']}+{cur['num_steps']} "
+          f"samples, ray_chunks {chunks}, white_back {cur['white_back']}, fov "
+          f"{cur['fov']}, cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
+    requests = make_voxel_requests(cur, REQUESTS, seed=0)
+    occupancy = [float(c["voxel"][..., 0].mean()) for c, _ in requests]
+    print(f"phase 7: {REQUESTS} requests of {BATCH} grids {VOXEL_RES}^3 x 4 "
+          f"(occupied share {min(occupancy):.4f}-{max(occupancy):.4f})")
+
+    expected = 2 * max(chunks, 1)  # coarse + fine per ray chunk
+    torch.cuda.reset_peak_memory_stats()
+    outputs = []
+    film_siren_mlp.launches = trilinear_point_features.launches = 0
+    for i, (cond, cams) in enumerate(requests):
+        before = film_siren_mlp.launches, trilinear_point_features.launches
+        t_enc, t_render, z, rgb, depth = serve(inf, cond, cams)
+        k1 = film_siren_mlp.launches - before[0]
+        tri = trilinear_point_features.launches - before[1]
+        dt = t_enc + t_render
+        print(f"phase 7 request {i}: {dt:.4f} s (encode {t_enc * 1e3:.3f} ms, "
+              f"render {t_render * 1e3:.3f} ms), "
+              f"{BATCH * IMAGE_SIZE * IMAGE_SIZE / dt:.1f} rays/s, launches K1 {k1} "
+              f"and trilinear {tri} (design {expected} each), max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        if (k1, tri) != (expected, expected):
+            failures.append(f"phase 7 request {i}: launches K1 {k1}, trilinear {tri}, "
+                            f"design {expected} each")
+        outputs.append((z, cams, rgb, depth))
+    launches = film_siren_mlp.launches, trilinear_point_features.launches
+
+    for z, cams, rgb, depth in outputs:
+        if rgb.shape != (BATCH, IMAGE_SIZE, IMAGE_SIZE, 3) or depth.shape != (
+                BATCH, IMAGE_SIZE, IMAGE_SIZE):
+            failures.append(f"phase 7: output shapes {rgb.shape}, {depth.shape}")
+        elif not (np.isfinite(rgb).all() and np.isfinite(depth).all()):
+            failures.append("phase 7: non-finite render output")
+        elif rgb.min() < -1 - 1e-5 or rgb.max() > 1 + 1e-5:
+            failures.append(f"phase 7: pixels outside [-1, 1]: {rgb.min()}, {rgb.max()}")
+    volume, global_feature = outputs[0][0]
+    print(f"phase 7: feature volume {tuple(volume.shape)} contiguous "
+          f"{volume.is_contiguous()}, |volume| max {volume.abs().max().item():.4f}, "
+          f"global {tuple(global_feature.shape)}; pixels in "
+          f"[{min(o[2].min() for o in outputs):.4f}, {max(o[2].max() for o in outputs):.4f}]"
+          f" (std {np.std([o[2] for o in outputs]):.4f}), depth in "
+          f"[{min(o[3].min() for o in outputs):.4f}, {max(o[3].max() for o in outputs):.4f}]")
+
+    # the same first render with both plain versions in the kernels' places
+    z, cams, rgb, depth = outputs[0]
+    siren_module.film_siren_mlp = film_siren_mlp_folded
+    siren_module.trilinear_point_features = (
+        lambda volume, coords, **_: border_trilerp_reference(volume, coords))
+    try:
+        rgb_plain, depth_plain = inf.render_batched(z, cams, z_batched=True)
+    finally:
+        siren_module.film_siren_mlp = film_siren_mlp
+        siren_module.trilinear_point_features = trilinear_point_features
+    diff = np.abs(rgb - rgb_plain).max(axis=-1)
+    over = float((diff > RENDER_TOL).mean())
+    print(f"phase 7: render vs plain render: mean|pixel| {diff.mean():.3e} "
+          f"(bound {RENDER_MEAN_TOL}), share of pixels off by > {RENDER_TOL}: "
+          f"{over:.3e} (bound {RENDER_OVER_SHARE}), max|pixel| {diff.max():.3e}, "
+          f"max|depth| {np.abs(depth - depth_plain).max():.3e}")
+    if diff.mean() > RENDER_MEAN_TOL or over > RENDER_OVER_SHARE:
+        failures.append("phase 7: kernel render disagrees with the plain render")
+    return launches, inf, requests[-1], dt
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -688,7 +1010,7 @@ def main() -> int:
         print("triton: not importable:", exc)
 
     t0 = time.perf_counter()
-    libs = build.load_libraries("film_siren_fwd", "film_siren_bwd")
+    libs = build.load_libraries("film_siren_fwd", "film_siren_bwd", "trilinear_fwd")
     print(f"built {len(libs)} kernel libraries in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -697,21 +1019,31 @@ def main() -> int:
             if "registers" in line or "spill" in line or "bytes stack" in line:
                 print("  ptxas:", line.strip())
 
+    failures: list[str] = []
     fwd = phase1_kernel(device)
+    fwd32 = phase1b_kernel_din32(device, failures)
     serve_launches, inf, last_request, last_s = phase2_serve(device, Path(build.BUILD_DIR))
     phase3_profile(inf, last_request, last_s)
     del inf
     torch.cuda.empty_cache()
-    failures: list[str] = []
     bwd = phase4_bwd(device, failures)
     train_fwd, train_bwd = phase5_train(device, failures)
+    torch.cuda.empty_cache()
+    tri = phase6_trilinear(device, failures)
+    (dg_k1, dg_tri), inf, last_request, last_s = phase7_dg_serve(
+        device, Path(build.BUILD_DIR), failures)
+    phase3_profile(inf, last_request, last_s, phase="phase 7 profile")
     if failures:
         raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
     fwd["launches"] = serve_launches + train_fwd
     fwd["launches_by_path"] = {"serve": serve_launches, "train": train_fwd}
+    fwd32["launches"] = dg_k1
+    fwd32["launches_by_path"] = {"dg_serve": dg_k1}
     bwd["launches"] = train_bwd
     bwd["launches_by_path"] = {"train": train_bwd}
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    tri["launches"] = dg_tri
+    tri["launches_by_path"] = {"dg_serve": dg_tri}
+    print(json.dumps({"kernels": [fwd, fwd32, bwd, tri]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,11 +7,12 @@ against it on the CPU. This package imports `torch`, never `jax` or `flax`
 checkpoint where flax is installed).
 
 Layout (bottom-up, mirroring the JAX package):
-    ops/          rays, volume integration, importance sampling;
-                  `ops/kernels/` holds the wrappers of the hand-written
-                  CUDA kernels (sources in `csrc/`, built at first use).
-    models/       SIREN layers and SHORTSIREN, ResNet-PointNet, the generator,
-                  the progressive discriminator.
+    ops/          rays, volume integration, importance sampling,
+                  trilinear feature-volume sampling; `ops/kernels/` holds
+                  the wrappers of the hand-written CUDA kernels (sources in
+                  `csrc/`, built at first use).
+    models/       SIREN layers, SHORTSIREN and the FG SIRENs, ResNet-PointNet,
+                  the 3-D U-Net, the generator, the progressive discriminator.
     training/     losses, schedules, the GAN train step, the stage workload.
     infer/        the Inferencer and its CLI (`python -m
                   conditioned_nerf_gan_torch.infer`).

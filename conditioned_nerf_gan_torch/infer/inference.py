@@ -2,8 +2,9 @@
 
 Ported: curriculum loading with the eval overrides, model building and port
 checkpoints (`{run}/checkpoints/{step}.pt`, written by `save_checkpoint` or
-by `bridge.convert_checkpoint`), `encode`, `generate_img`, `render_batched`
-and the image grids (`render_imgs`). Video, colored pcl, voxel export,
+by `bridge.convert_checkpoint`), `encode` (PointNet for point-cloud runs,
+the U-Net for voxel runs), `generate_img`, `render_batched`, the image grids
+(`render_imgs`) and `_load_car_cond`. Video, colored pcl, voxel export,
 metrics and latent interpolation are ROADMAP A10.
 """
 
@@ -18,35 +19,44 @@ import torch
 
 from conditioned_nerf_gan_tpu.config import (
     curriculum_from_json,
+    curriculum_to_json,
     extract_metadata,
     load_curriculum,
 )
 
 from ..models.generator import ImplicitGenerator3d, RenderConfig
 from ..models.pointnet import ResnetPointnet, encode_pcl
+from ..models.unet3d import make_unet
 from ..ops.rays import create_cam2world_matrix, sample_camera_positions
 
 
-def load_metadata(step: int, run_dir: str | Path | None = None) -> dict:
+def load_metadata(step: int, run_dir: str | Path | None = None,
+                  config: str | None = None) -> dict:
     """Curriculum metadata at `step`: the run's curriculum.json when it has
-    one, else the `thousand` preset chain (the thesis model)."""
+    one, else the `thousand` preset chain (the thesis model), overlaid with
+    the preset `config` of that chain when one is named (e.g. "dg")."""
     path = Path(run_dir) / "curriculum.json" if run_dir is not None else None
     if path is not None and path.exists():
         print("Loading curriculum from", path)
         curriculum = curriculum_from_json(path)
     else:
-        print("Creating curriculum from the thousand preset chain")
-        curriculum = load_curriculum(config_base="thousand")
+        print("Creating curriculum from the thousand preset chain",
+              f"with {config}" if config else "")
+        curriculum = load_curriculum(config_base="thousand", config=config)
     return extract_metadata(curriculum, step)
+
+
+def voxel_to_ndhwc(voxel: np.ndarray) -> np.ndarray:
+    """A voxel grid as stored, (x, y, z, C), to the encoder's NDHWC
+    (z, y, x, C): the dataset's transpose (the torch permute(3, 2, 1, 0))."""
+    return np.ascontiguousarray(np.asarray(voxel).transpose(2, 1, 0, 3)).astype(np.float32)
 
 
 def build_models(meta: dict, generator: torch.Generator | None = None):
     """Generator and encoder for a curriculum's resolved metadata, fp32
     params initialised from `generator` (the JAX package's init schemes)."""
     gen_meta = meta["generator"]
-    if meta["dataset"]["load_voxel"]:
-        raise NotImplementedError("voxel-conditioned models are ROADMAP A12")
-    if not meta["dataset"]["load_pcl"]:
+    if not (meta["dataset"]["load_voxel"] or meta["dataset"]["load_pcl"]):
         raise ValueError("curriculum must enable load_pcl or load_voxel")
     dtype_name = meta.get("compute_dtype")
     G = ImplicitGenerator3d(
@@ -62,15 +72,24 @@ def build_models(meta: dict, generator: torch.Generator | None = None):
         use_kernel=meta.get("use_pallas", False),
         generator=generator,
     )
-    E = ResnetPointnet(c_dim=gen_meta["z_dim"], generator=generator)
+    if meta["dataset"]["load_voxel"]:
+        E = make_unet(generator=generator, **meta["unet"])
+    else:
+        E = ResnetPointnet(c_dim=gen_meta["z_dim"], generator=generator)
     return G, E
 
 
 def save_checkpoint(path: str | Path, step: int, generator_model: torch.nn.Module,
-                    encoder: torch.nn.Module) -> Path:
-    """Write a port checkpoint {"step", "params_G", "params_E"}."""
+                    encoder: torch.nn.Module, config: str | None = None) -> Path:
+    """Write a port checkpoint {"step", "params_G", "params_E"}. With
+    `config`, the run (`path`'s grandparent) also gets that preset's
+    curriculum (`load_metadata`'s chain) as its curriculum.json, which the
+    Inferencer loads."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
+    if config is not None:
+        curriculum_to_json(load_curriculum(config_base="thousand", config=config),
+                           path.parent.parent / "curriculum.json")
     torch.save({"step": step,
                 "params_G": {k: v.detach().cpu() for k, v in
                              generator_model.state_dict().items()},
@@ -91,6 +110,7 @@ class Inferencer:
         self.image_size = image_size
         self.ray_step_multiplier = ray_step_multiplier
         self.up_direction = "z" if z_up else "y"
+        self.rng = np.random.default_rng(seed)
         self.torch_rng = torch.Generator().manual_seed(seed)
         self.step = int(self.checkpoint_path.stem)
         self.run_dir = self.checkpoint_path.parent.parent
@@ -131,13 +151,18 @@ class Inferencer:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def encode(self, sample_batch: dict) -> torch.Tensor:
-        if not self.curriculum["dataset"]["load_pcl"]:
-            raise NotImplementedError("voxel encoding is ROADMAP A12")
-        pcl = torch.as_tensor(np.asarray(sample_batch["pcl"]), dtype=torch.float32,
-                              device=self.device)
-        z, _ = encode_pcl(self.encoder, pcl)
-        return z
+    def encode(self, sample_batch: dict):
+        """{"pcl": (B, P, 6)} -> z (B, z_dim); or {"voxel": (B, D, H, W, C)}
+        NDHWC grids, as ShapeNetDataset yields them -> the U-Net's
+        (feature volume (B, D, H, W, C) contiguous, global (B, z_dim))."""
+        if self.curriculum["dataset"]["load_pcl"]:
+            pcl = torch.as_tensor(np.asarray(sample_batch["pcl"]), dtype=torch.float32,
+                                  device=self.device)
+            z, _ = encode_pcl(self.encoder, pcl)
+            return z
+        voxel = torch.as_tensor(np.asarray(sample_batch["voxel"]), dtype=torch.float32,
+                                device=self.device)
+        return self.encoder(voxel)
 
     @torch.no_grad()
     def generate_img(self, z, cam2world, img_size=None, num_steps=None, fov=None):
@@ -151,21 +176,28 @@ class Inferencer:
         if not np.isscalar(fov):
             fov = torch.as_tensor(np.asarray(fov), dtype=torch.float32,
                                   device=self.device)
-        return self.generator(torch.as_tensor(z, device=self.device), cams, cfg,
-                              generator=None, fov=fov)
+        if isinstance(z, (tuple, list)):
+            z = tuple(torch.as_tensor(part, device=self.device) for part in z)
+        else:
+            z = torch.as_tensor(z, device=self.device)
+        return self.generator(z, cams, cfg, generator=None, fov=fov)
 
     def render_batched(self, z, cams, *, fov=None, chunk: int = 8, img_size=None,
                        num_steps=None, z_batched: bool = False):
         """Render views in blocks of `chunk` -> numpy (rgb, depth) stacks.
 
         `fov` may be a per-view (n,) sweep; `z_batched` means z already has
-        batch n (else the single conditioning is repeated per block)."""
+        batch n (else the single conditioning is repeated per block). A
+        (volume, global) pair is cut or repeated member by member."""
         cams = np.asarray(cams)
         n = cams.shape[0]
+        parts = tuple(z) if isinstance(z, (tuple, list)) else (z,)
         rgbs, depths = [], []
         for s in range(0, n, chunk):
             e = min(s + chunk, n)
-            z_c = z[s:e] if z_batched else z.repeat_interleave(e - s, dim=0)
+            z_c = tuple(p[s:e] if z_batched else p.repeat_interleave(e - s, dim=0)
+                        for p in parts)
+            z_c = z_c if len(parts) > 1 else z_c[0]
             fov_c = None
             if fov is not None:
                 fov_c = fov if np.ndim(fov) == 0 else np.asarray(fov[s:e])
@@ -211,7 +243,8 @@ class Inferencer:
             depth = sample.get("depth", np.zeros(sample["img"].shape[:2], np.float32))
             gt_depth_rows.append(np.repeat((depth / ray_end)[..., None], 3, -1))
             cam_rows.append(np.asarray(sample["cam2world"] if fixed else cams[row]))
-        z = self.encode({"pcl": np.stack([np.asarray(s["pcl"]) for s in samples])})
+        z = self.encode({k: np.stack([np.asarray(s[k]) for s in samples])
+                         for k in ("pcl", "voxel") if k in samples[0]})
         rgb_all, d_all = self.render_batched(z, np.stack(cam_rows), z_batched=True)
         for rgb, d in zip(rgb_all, d_all):
             gen_rows.append(rgb * 0.5 + 0.5)
@@ -224,3 +257,17 @@ class Inferencer:
                         nrow=n, padding=0)
         print("Save image to", out)
         return out
+
+    def _load_car_cond(self, car_name: str) -> dict:
+        """A dataset car's conditioning as a batch of one: its colored point
+        cloud (a `num_points_ratio` random subset), or its voxel grid at
+        the run's `voxel_resolution` in NDHWC."""
+        root = Path(self.curriculum["dataset"]["path"]) / car_name
+        if self.curriculum["dataset"]["load_pcl"]:
+            pcl = np.load(root / "pcl_color.npy").astype(np.float32)
+            ratio = self.curriculum.get("num_points_ratio", 1.0)
+            n = max(1, int(pcl.shape[0] * ratio))
+            return {"pcl": pcl[self.rng.permutation(pcl.shape[0])[:n]][None]}
+        name = {64: "voxel.npz", 32: "voxel_32.npz", 128: "voxel_128.npz"}[
+            self.curriculum["voxel_resolution"]]
+        return {"voxel": voxel_to_ndhwc(np.load(root / name)["voxel"])[None]}

@@ -1,13 +1,15 @@
-"""Models (port of conditioned_nerf_gan_tpu/models): SHORTSIREN, the
-ResNet-PointNet encoder, the generator composition and the progressive
-discriminator."""
+"""Models (port of conditioned_nerf_gan_tpu/models): SHORTSIREN and the FG
+SIRENs, the ResNet-PointNet and 3-D U-Net encoders, the generator
+composition and the progressive discriminator."""
 
 from .discriminators import ProgressiveDiscriminator, make_discriminator
 from .generator import ImplicitGenerator3d, RenderConfig
 from .pointnet import ResnetPointnet, encode_pcl
 from .siren import SIREN_REGISTRY, SIREN_SPECS, ConditionedSiren, make_siren
+from .unet3d import AbstractUNet3D, make_unet
 
 __all__ = [
+    "AbstractUNet3D",
     "ConditionedSiren",
     "ImplicitGenerator3d",
     "ProgressiveDiscriminator",
@@ -18,4 +20,5 @@ __all__ = [
     "encode_pcl",
     "make_discriminator",
     "make_siren",
+    "make_unet",
 ]

@@ -9,8 +9,10 @@ With grad enabled and `ray_chunks` > 1, each chunk runs under
 random number of a render (perturbation, fine-sample uniforms, density
 noise) is drawn up front for the whole image: the recompute of a
 checkpointed chunk replays the same fine samples and noise, and chunked and
-unchunked renders draw the same numbers. `save_siren_outputs` (a
-measured-neutral training lever of the JAX package) is not ported.
+unchunked renders draw the same numbers. The conditioning `z` is whatever
+the SIREN takes: a latent, or the voxel family's (feature volume, global)
+pair, which every chunk (and its recompute) reads whole. `save_siren_outputs`
+(a measured-neutral training lever of the JAX package) is not ported.
 """
 
 from __future__ import annotations
@@ -109,13 +111,14 @@ class ImplicitGenerator3d(nn.Module):
             clamp_mode=config.clamp_mode, fill_mode=config.fill_mode)
         return pixels, distances
 
-    def forward(self, z: torch.Tensor, cam2world: torch.Tensor, config: RenderConfig,
+    def forward(self, z, cam2world: torch.Tensor, config: RenderConfig,
                 *, generator: torch.Generator | None = None, nerf_noise: float = 0.0,
                 fov=None, row_offset: int | None = None,
                 render_rows: int | None = None):
         """Render a batch of images.
 
-        z (B, z_dim); cam2world (B, 4, 4). `generator` drives stratified
+        z (B, z_dim), or a (volume (B, D, H, W, C), global (B, z_dim))
+        pair; cam2world (B, 4, 4). `generator` drives stratified
         perturbation, stochastic fine sampling and, where
         `config.density_noise` is set, density noise of std `nerf_noise`;
         None renders deterministically. `fov` overrides config.fov (scalar

@@ -1,4 +1,4 @@
-"""SIREN/FiLM building blocks and the mapping network (port of
+"""SIREN/FiLM building blocks and the mapping networks (port of
 conditioned_nerf_gan_tpu/models/layers.py).
 
 Weights are (out, in) as in `nn.Linear`; the init schemes replicate the JAX
@@ -128,4 +128,20 @@ class CustomMappingNetwork(nn.Module):
         for layer in self.layers[:-1]:
             x = F.leaky_relu(layer(x), negative_slope=0.2)
         freq, phase = self.layers[-1](x).chunk(2, dim=-1)
+        return freq, phase
+
+
+class LinearMapping(nn.Module):
+    """One torch-default linear layer, output split into (frequencies,
+    phase_shifts): the FG variants' mapping from the U-Net's global
+    feature. `layers.0` is the flax `TorchLinear_0`."""
+
+    def __init__(self, in_features: int, output_dim: int, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.layers = nn.ModuleList([TorchLinear(in_features, output_dim,
+                                                 generator=generator)])
+
+    def forward(self, z):
+        freq, phase = self.layers[0](z).chunk(2, dim=-1)
         return freq, phase

@@ -2,9 +2,16 @@
 
 The JAX package collapses the reference's 14 SIREN classes into one
 `ConditionedSiren` driven by the `SIREN_SPECS` table. This port carries the
-table and builds the all-FiLM, points-input, z-conditioned spec
-(`SHORTSIREN`, the thesis model); every other variant raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+table and builds the all-FiLM specs of two families:
+  * points input, conditioned on a global latent z: `SHORTSIREN`, the
+    thesis model;
+  * features input (per-point features sampled from the U-Net's feature
+    volume, border-mode trilinear, points normalized by 0.6), FiLM from a
+    linear mapping of the U-Net's global feature: `TALLSIREN_FG`,
+    `SHORTSIREN_FG`, `DOUBLESIREN_FG` and `SingleSIREN_dg` (the voxel
+    family; the presets' `*_dg` names are aliases).
+Every other variant raises `NotImplementedError` naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -16,19 +23,39 @@ import torch.nn as nn
 
 from conditioned_nerf_gan_tpu.config.presets import resolve_siren_alias
 
+from ..ops.grid_sample import trilinear_point_features
 from ..ops.kernels.film_siren import film_siren_mlp
 from .layers import (
     CustomMappingNetwork,
     FiLMLayer,
+    LinearMapping,
     TorchLinear,
     first_layer_film_sine_init,
     frequency_init,
 )
 
+VOXEL_LENGTH = 1.2  # the voxel grids are sampled within a 1.2^3 cube
+
 
 def sigmoid_rgb(rgb_sigma: torch.Tensor) -> torch.Tensor:
     """Sigmoid on the rgb channels only."""
     return torch.cat([torch.sigmoid(rgb_sigma[..., :3]), rgb_sigma[..., -1:]], dim=-1)
+
+
+def sample_volume_features(points: torch.Tensor, volume: torch.Tensor) -> torch.Tensor:
+    """Trilinear lookup of per-point features: points (B, N, 3) world
+    coordinates inside the +-0.6 cube, volume (B, D, H, W, C) -> (B, N, C)."""
+    coords = points / (VOXEL_LENGTH / 2.0)
+    return trilinear_point_features(volume, coords, align_corners=False,
+                                    padding_mode="border")
+
+
+def sample_pyramid_features(points: torch.Tensor, pyramid) -> torch.Tensor:
+    """The features input's lookup. A single volume only: a feature pyramid
+    (a list of volumes, from PyramidUNet3D) is not ported yet."""
+    if isinstance(pyramid, (list, tuple)):
+        raise NotImplementedError("feature pyramids are not ported yet (ROADMAP A12)")
+    return sample_volume_features(points, pyramid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,8 +110,16 @@ SIREN_REGISTRY = tuple(SIREN_SPECS) + (
 )
 
 
+def is_ported(spec: SirenSpec) -> bool:
+    """All-FiLM specs with points input and a z mapping, or features input
+    and a linear mapping of the global feature."""
+    return all(k == "film" for k in spec.layers) and (
+        (spec.input, spec.mapping) in (("points", "selectable"), ("features", "linear")))
+
+
 class ConditionedSiren(nn.Module):
-    """All-FiLM, points-input SIREN conditioned on a global latent z."""
+    """All-FiLM SIREN: points input conditioned on a global latent z, or
+    sampled-features input conditioned on the U-Net's global feature."""
 
     def __init__(self, spec: SirenSpec, *, z_dim: int = 100, input_dim: int = 3,
                  hidden_dim: int = 256, output_dim: int = 4, drop_out: float = 0.0,
@@ -93,11 +128,10 @@ class ConditionedSiren(nn.Module):
                  use_fast_sin: bool = False, use_kernel: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if not (all(k == "film" for k in spec.layers) and spec.input == "points"
-                and spec.mapping == "selectable"):
-            raise NotImplementedError(
-                f"{spec} is not ported yet (ROADMAP A12/A13)")
-        if mapping_network != "CustomMappingNetwork":
+        if not is_ported(spec):
+            item = "A13" if spec.input == "points" else "A12"
+            raise NotImplementedError(f"{spec} is not ported yet (ROADMAP {item})")
+        if spec.mapping == "selectable" and mapping_network != "CustomMappingNetwork":
             raise NotImplementedError(
                 f"mapping network {mapping_network!r} is not ported yet (ROADMAP A13)")
         self.spec = spec
@@ -107,8 +141,12 @@ class ConditionedSiren(nn.Module):
         self.use_fast_sin = use_fast_sin
         self.use_kernel = use_kernel
         n_film = len(spec.layers)
-        self.mapping_network = CustomMappingNetwork(
-            z_dim, 256, n_film * hidden_dim * 2, generator=generator)
+        if spec.mapping == "linear":
+            self.mapping_network = LinearMapping(z_dim, n_film * hidden_dim * 2,
+                                                 generator=generator)
+        else:
+            self.mapping_network = CustomMappingNetwork(
+                z_dim, 256, n_film * hidden_dim * 2, generator=generator)
         finit = frequency_init(spec.freq_init)
         self.film_layers = nn.ModuleList([
             FiLMLayer(input_dim if i == 0 else hidden_dim, hidden_dim,
@@ -129,23 +167,33 @@ class ConditionedSiren(nn.Module):
                 and self.use_fast_sin
                 and self.compute_dtype == torch.bfloat16)
 
-    def forward(self, points: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        """points (B, N, 3) world points, z (B, z_dim) -> (B, N, 4). Past
-        the gate, CUDA inputs go to the forward kernel, and with grad
-        enabled its backward is the backward kernel (`FilmSirenMLP`)."""
-        freq, phase = self.mapping_network(z)
+    def forward(self, points: torch.Tensor, z) -> torch.Tensor:
+        """points (B, N, 3) world points; z the conditioning: a latent
+        (B, z_dim) for points input, a (volume (B, D, H, W, C), global
+        (B, z_dim)) pair for features input (the JAX package's resolution
+        of the tuple, models/siren.py:161-175) -> (B, N, 4). Past the gate,
+        CUDA inputs go to the forward kernel, and with grad enabled its
+        backward is the backward kernel (`FilmSirenMLP`)."""
+        pair = isinstance(z, (tuple, list))
+        if self.spec.input == "features":
+            volume, global_feature = (z[0], z[1]) if pair else (z, None)
+            if global_feature is None:
+                raise ValueError(f"{self.spec} is conditioned on a (volume, global) pair")
+            x = sample_pyramid_features(points, volume)
+        else:
+            x, global_feature = points, (z[1] if pair else z)
+        freq, phase = self.mapping_network(global_feature)
         freq = freq * 15.0 + 30.0
         if self.routes_to_kernel(freq):
             lins = [layer.linear for layer in self.film_layers]
             rgb_sigma = film_siren_mlp(
-                points, freq, phase,
+                x, freq, phase,
                 lins[0].weight.t(), lins[0].bias,
                 torch.stack([l.weight.t() for l in lins[1:]]),
                 torch.stack([l.bias for l in lins[1:]]),
                 self.final_layer.weight.t(), self.final_layer.bias,
             )
         else:
-            x = points
             H = self.hidden_dim
             for i, layer in enumerate(self.film_layers):
                 x = layer(x, freq[..., i * H:(i + 1) * H], phase[..., i * H:(i + 1) * H])
@@ -161,17 +209,16 @@ def make_siren(siren_type: str, *, z_dim: int = 100, input_dim: int = 3,
                compute_dtype: torch.dtype | None = None, use_fast_sin: bool = False,
                use_kernel: bool = False, generator: torch.Generator | None = None,
                **_unused) -> nn.Module:
-    """Build a SIREN variant by reference class name."""
+    """Build a SIREN variant by reference class name (aliases resolved).
+    `z_dim` is the mapping's input: the latent, or the U-Net's global
+    feature; `input_dim` the first layer's: 3, or the feature volume's C."""
     siren_type = resolve_siren_alias(siren_type)
-    if siren_type == "SHORTSIREN":
+    if siren_type in SIREN_SPECS:
         return ConditionedSiren(
             SIREN_SPECS[siren_type], z_dim=z_dim, input_dim=input_dim,
             hidden_dim=hidden_dim, output_dim=output_dim, drop_out=drop_out,
             mapping_network=mapping_network, compute_dtype=compute_dtype,
             use_fast_sin=use_fast_sin, use_kernel=use_kernel, generator=generator)
-    if siren_type in SIREN_SPECS and SIREN_SPECS[siren_type].input != "points":
-        raise NotImplementedError(
-            f"{siren_type} (feature-volume input) is not ported yet (ROADMAP A12)")
     if siren_type in SIREN_REGISTRY:
         raise NotImplementedError(f"{siren_type} is not ported yet (ROADMAP A13)")
     raise ValueError(f"Unknown siren_type {siren_type!r}")

@@ -1,6 +1,8 @@
-"""Rendering ops (port of conditioned_nerf_gan_tpu/ops): plain torch, plus
-`ops/kernels/` for the hand-written CUDA kernels' wrappers."""
+"""Rendering ops (port of conditioned_nerf_gan_tpu/ops): plain torch, the
+trilinear feature-volume sampler, and `ops/kernels/` for the hand-written
+CUDA kernels' wrappers."""
 
+from .grid_sample import border_trilerp_reference, trilinear_point_features
 from .integration import volume_integrate
 from .rays import (
     create_cam2world_matrix,
@@ -15,6 +17,7 @@ from .rays import (
 from .sampling import merge_sorted_samples, sample_pdf
 
 __all__ = [
+    "border_trilerp_reference",
     "create_cam2world_matrix",
     "distance2depth",
     "get_initial_rays",
@@ -25,5 +28,6 @@ __all__ = [
     "sample_camera_positions",
     "sample_pdf",
     "transform_rays",
+    "trilinear_point_features",
     "volume_integrate",
 ]

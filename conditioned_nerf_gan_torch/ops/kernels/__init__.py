@@ -12,6 +12,7 @@ from .film_siren import (
     sin7,
     unfold_film_grads,
 )
+from .trilinear import trilinear_fwd
 
 __all__ = [
     "FilmSirenMLP",
@@ -23,5 +24,6 @@ __all__ = [
     "film_siren_mlp_reference",
     "fold_film",
     "sin7",
+    "trilinear_fwd",
     "unfold_film_grads",
 ]

@@ -48,9 +48,13 @@ _S3 = -1.6565644419e-01
 _S5 = 7.9559223702e-03
 _S7 = -1.4495299408e-04
 
-# shapes the CUDA kernel is compiled for (csrc/film_siren_fwd.cu)
+# shapes the CUDA kernels are compiled for: csrc/film_siren_fwd.cu has an
+# instance for each input width (xyz points; sampled U-Net features) and
+# takes 2 to 8 layers; csrc/film_siren_bwd.cu takes xyz points only
 KERNEL_HIDDEN = 256
 KERNEL_IN = 3
+KERNEL_INS = (3, 32)
+KERNEL_LAYERS = (2, 8)
 KERNEL_OUT = 4
 # csrc/film_siren_bwd.cu: points per sweep tile (the scratch is padded to a
 # multiple of it), the column padding of its point/cotangent scratch, and
@@ -218,7 +222,7 @@ def film_siren_mlp_folded_vjp(points, freq, phase, w0, b0, ws, bs, wf, bf, g,
 
 
 def _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf,
-                        name="film_siren_mlp"):
+                        name="film_siren_mlp", widths=KERNEL_INS):
     args = dict(points=points, freq=freq, phase=phase, w0=w0, b0=b0, ws=ws,
                 bs=bs, wf=wf, bf=bf)
     for arg, t in args.items():
@@ -227,11 +231,15 @@ def _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf,
                              f"points on {points.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
-    B, N, _ = points.shape
+    B, N, din = points.shape
+    if din not in widths:
+        later = " (Din 32 comes with voxel training, ROADMAP A12)" if din == 32 else ""
+        raise ValueError(f"{name}: points have {din} features, the kernel takes "
+                         f"{' or '.join(map(str, widths))}{later}")
     L = 1 + ws.shape[0]
     H = w0.shape[1]
-    expected = dict(points=(B, N, KERNEL_IN), freq=(B, L * H), phase=(B, L * H),
-                    w0=(KERNEL_IN, KERNEL_HIDDEN), b0=(KERNEL_HIDDEN,),
+    expected = dict(points=(B, N, din), freq=(B, L * H), phase=(B, L * H),
+                    w0=(din, KERNEL_HIDDEN), b0=(KERNEL_HIDDEN,),
                     ws=(L - 1, KERNEL_HIDDEN, KERNEL_HIDDEN),
                     bs=(L - 1, KERNEL_HIDDEN), wf=(KERNEL_HIDDEN, KERNEL_OUT),
                     bf=(KERNEL_OUT,))
@@ -239,8 +247,9 @@ def _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf,
         if tuple(args[arg].shape) != shape:
             raise ValueError(f"{name}: {arg} has shape "
                              f"{tuple(args[arg].shape)}, the kernel takes {shape}")
-    if L < 2:
-        raise ValueError(f"{name}: the kernel needs at least 2 layers")
+    lo, hi = KERNEL_LAYERS
+    if not lo <= L <= hi:
+        raise ValueError(f"{name}: L={L} layers, the kernel takes {lo} to {hi}")
     if not points.is_contiguous():
         raise ValueError(f"{name}: points must be contiguous")
     if B > 65535 or N >= 2 ** 31 - 128:
@@ -248,7 +257,7 @@ def _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf,
 
 
 def _fold_for_kernel(freq, phase, w0, b0, ws, bs):
-    """The folded operands as the kernels read them: w0f (B, 3, H) and wsf
+    """The folded operands as the kernels read them: w0f (B, Din, H) and wsf
     (B, L-1, H, H) bf16, c (B, L, H) fp32 (c_0 then c_1..)."""
     w0f, c0, wsf, cs = fold_film(freq, phase, w0, b0, ws, bs, torch.bfloat16)
     c = torch.cat([c0[:, None], cs], dim=1).contiguous()
@@ -268,17 +277,17 @@ def _c_function(library, symbol, n_pointers, n_ints):
 
 def _forward_kernel(points, freq, phase, w0, b0, ws, bs, wf, bf):
     """Launch K1 on checked inputs -> (B, N, 4) fp32."""
-    fn = _c_function("film_siren_fwd", "film_siren_fwd", 7, 3)
+    fn = _c_function("film_siren_fwd", "film_siren_fwd", 7, 4)
     w0f, c, wsf = _fold_for_kernel(freq, phase, w0, b0, ws, bs)
     wf16 = wf.to(torch.bfloat16).contiguous()
     bf = bf.contiguous()
-    B, N, _ = points.shape
+    B, N, din = points.shape
     out = torch.empty(B, N, KERNEL_OUT, dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):  # launch on the tensors' card
         stream = torch.cuda.current_stream(points.device).cuda_stream
         err = fn(points.data_ptr(), w0f.data_ptr(), c.data_ptr(), wsf.data_ptr(),
                  wf16.data_ptr(), bf.data_ptr(), out.data_ptr(), B, N, c.shape[1],
-                 stream)
+                 din, stream)
     if err != 0:
         raise RuntimeError(f"film_siren_fwd launch failed: cudaError {err}")
     film_siren_mlp.launches += 1
@@ -306,7 +315,8 @@ def film_siren_mlp(points, freq, phase, w0, b0, ws, bs, wf, bf):
     """Fused FiLM-SIREN forward -> (B, N, 4) fp32.
 
     CUDA tensors go to the hand-written kernel (bf16 operands, fp32
-    accumulation, sin7 — the math of `film_siren_mlp_folded`), through
+    accumulation, sin7 — the math of `film_siren_mlp_folded`; points of 3
+    or 32 features, 2 to 8 layers of 256), through
     `FilmSirenMLP` when an input needs grad; anything the kernel does not
     take raises. CPU tensors take the fp32 reference under plain autograd,
     as the JAX wrapper does off the TPU. `film_siren_mlp.launches` counts
@@ -335,15 +345,16 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
     and the bf16 h_l / dpre_l, then the folded weight grads summed over
     points in a fixed order (deterministic), then `unfold_film_grads`. The
     cotangent g (B, N, 4) may be any strided view; it is made contiguous
-    here. CPU tensors take `film_siren_mlp_folded_vjp`.
-    `film_siren_mlp_bwd.launches` counts kernel launches.
+    here. The kernel takes xyz points (Din 3) only. CPU tensors take
+    `film_siren_mlp_folded_vjp`. `film_siren_mlp_bwd.launches` counts
+    kernel launches.
     """
     args = (points, freq, phase, w0, b0, ws, bs, wf, bf)
     if points.device.type == "cpu":
         return film_siren_mlp_folded_vjp(*args, g)
     if points.device.type != "cuda":
         raise ValueError(f"film_siren_mlp_bwd: no kernel for device {points.device}")
-    _check_kernel_inputs(*args, name="film_siren_mlp_bwd")
+    _check_kernel_inputs(*args, name="film_siren_mlp_bwd", widths=(KERNEL_IN,))
     B, N, _ = points.shape
     if g.device != points.device or g.dtype != torch.float32:
         raise TypeError(f"film_siren_mlp_bwd: g must be float32 on {points.device}, "

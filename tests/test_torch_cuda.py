@@ -1,5 +1,6 @@
 """Card-only tests of the hand-written CUDA kernels (marker `cuda`): the
-FiLM-SIREN forward (K1) and backward (K2) against their plain versions.
+FiLM-SIREN forward (K1, at Din 3 and 32) and backward (K2), and the
+trilinear sampler, against their plain versions.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where only the port is installed:
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from conditioned_nerf_gan_torch.ops import grid_sample as tgs
 from conditioned_nerf_gan_torch.ops.kernels import film_siren as tfs
 
 pytestmark = pytest.mark.cuda
@@ -141,3 +143,92 @@ def test_bwd_kernel_refuses_what_it_does_not_take(kernel_inputs, cotangent):
         tfs.film_siren_mlp_bwd(*narrow, cotangent)
     with pytest.raises(ValueError, match="points on"):
         tfs.film_siren_mlp_bwd(*kernel_inputs[:-1], kernel_inputs[-1].cpu(), cotangent)
+
+
+@pytest.fixture
+def voxel_inputs():
+    """K1's inputs at the voxel family's shape and init (TALLSIREN_FG: 32
+    sampled features, 8 layers, the trunk U(+-sqrt(6/256)/25))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    B, N, H, L, DIN = 2, 1000, tfs.KERNEL_HIDDEN, 8, 32
+    trunk = np.sqrt(6 / H) / 25
+    arrays = (
+        rng.uniform(-1, 1, (B, N, DIN)),
+        rng.uniform(25, 45, (B, L * H)),
+        rng.uniform(-1, 1, (B, L * H)),
+        rng.uniform(-1 / DIN, 1 / DIN, (DIN, H)),
+        rng.uniform(-0.2, 0.2, (H,)),
+        rng.uniform(-trunk, trunk, (L - 1, H, H)),
+        rng.uniform(-1 / 16, 1 / 16, (L - 1, H)),
+        rng.uniform(-trunk, trunk, (H, 4)),
+        rng.uniform(-1 / 16, 1 / 16, (4,)),
+    )
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays]
+
+
+@pytest.mark.parametrize("freq_scale,atol", [
+    # freq/30: no rounding flip can grow, so any layout fault is O(0.1)
+    # (chip_smoke.py's ragged shape on an H100: 2.2e-5)
+    (1.0 / 30.0, 1e-4),
+    # freq 25-45 over 8 layers: a flipped bf16 rounding of h grows per layer
+    # (chip_smoke.py's ragged shape: 1.5e-3); chip_smoke.py bounds mean,
+    # p99.9 and fp64 distance at 1.57M points
+    (1.0, 5e-3),
+])
+def test_kernel_din32_matches_folded(voxel_inputs, freq_scale, atol):
+    voxel_inputs[1] = voxel_inputs[1] * freq_scale
+    before = tfs.film_siren_mlp.launches
+    with torch.no_grad():
+        out = tfs.film_siren_mlp(*voxel_inputs)
+        plain = tfs.film_siren_mlp_folded(*voxel_inputs)
+    torch.cuda.synchronize()
+    assert tfs.film_siren_mlp.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert (out - plain).abs().max().item() < atol
+
+
+def test_bwd_kernel_refuses_din32(voxel_inputs):
+    g = torch.zeros(*voxel_inputs[0].shape[:2], 4, device="cuda")
+    with pytest.raises(ValueError, match="A12"):
+        tfs.film_siren_mlp_bwd(*voxel_inputs, g)
+
+
+@pytest.fixture
+def volume_coords():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    rng = np.random.default_rng(3)
+    vol = rng.normal(size=(2, 16, 12, 20, 32)).astype(np.float32)
+    coords = rng.uniform(-1.3, 1.3, (2, 3000, 3)).astype(np.float32)
+    coords[:, :6] = [[1, 1, 1], [-1, -1, -1], [19 / 20, 11 / 12, 15 / 16],
+                     [-19 / 20, -11 / 12, -15 / 16], [0, 0, 0], [1, -1, 0]]
+    return torch.from_numpy(vol).cuda(), torch.from_numpy(coords).cuda()
+
+
+def test_trilinear_kernel_matches_plain(volume_coords):
+    vol, coords = volume_coords
+    before = tgs.trilinear_point_features.launches
+    out = tgs.trilinear_point_features(vol, coords)
+    plain = tgs.border_trilerp_reference(vol, coords)
+    torch.cuda.synchronize()
+    assert tgs.trilinear_point_features.launches == before + 1
+    assert out.shape == plain.shape == (2, 3000, 32)
+    # the same fp32 roundings in the same order, no FMA contraction
+    assert (out - plain).abs().max().item() <= 1e-5 * vol.abs().max().item()
+
+
+def test_trilinear_kernel_refuses_what_it_does_not_take(volume_coords):
+    vol, coords = volume_coords
+    with pytest.raises(ValueError, match="contiguous"):
+        tgs.trilinear_point_features(vol, coords.transpose(0, 1).contiguous()
+                                     .transpose(0, 1))
+    with pytest.raises(TypeError, match="float32"):
+        tgs.trilinear_point_features(vol.double(), coords)
+    with pytest.raises(ValueError, match="C % 4"):
+        tgs.trilinear_point_features(vol[..., :6].contiguous(), coords)
+    with pytest.raises(ValueError, match="on"):
+        tgs.trilinear_point_features(vol, coords.cpu())
+

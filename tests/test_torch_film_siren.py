@@ -62,6 +62,57 @@ def test_folded_fp32_matches_pallas_interpret():
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-4)
 
 
+def _voxel_inputs(freq_scale, B=2, N=100, Din=32, H=32, L=8, seed=0):
+    """The voxel family's shape (32 sampled features, 8 layers), at the
+    model's init scales so that 8 layers neither vanish nor explode."""
+    rng = np.random.default_rng(seed)
+    arrays = (
+        rng.uniform(-0.5, 0.5, (B, N, Din)),
+        rng.uniform(25, 45, (B, L * H)) * freq_scale,
+        rng.uniform(-1, 1, (B, L * H)),
+        rng.uniform(-1, 1, (Din, H)) / Din,
+        rng.normal(size=(H,)) * 0.1,
+        rng.uniform(-1, 1, (L - 1, H, H)) * np.sqrt(6 / H) / 25,
+        rng.normal(size=(L - 1, H)) * 0.1,
+        rng.uniform(-1, 1, (H, 4)) * np.sqrt(6 / H) / 25,
+        rng.normal(size=(4,)) * 0.1,
+    )
+    return [a.astype(np.float32) for a in arrays]
+
+
+@pytest.mark.parametrize("freq_scale", [1.0 / 30.0, 1.0], ids=["freq_over_30", "freq"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_folded_din32_l8_matches_pallas_interpret(freq_scale, dtype):
+    """K1 at the voxel family's shape: the port's folded math vs the real
+    Pallas kernel in interpret mode (100 points, 32-point tiles)."""
+    j_in, t_in = _both(_voxel_inputs(freq_scale))
+    j = jfs._forward_pallas(*j_in, tile=32, matmul_dtype=getattr(jnp, dtype),
+                            interpret=True)
+    t = tfs.film_siren_mlp_folded(*t_in, matmul_dtype=getattr(torch, dtype))
+    # the same roundings, fp32 sums in another order (observed 5.7e-7 in
+    # fp32, 7.5e-9 in bf16, where no rounding of h flips at these points;
+    # one flip would move the output by ~1e-3)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4)
+
+
+def test_kernel_checks_take_din32_for_the_forward_only():
+    """The checks both wrappers run on a card: the forward takes Din 3 or
+    32 and 2 to 8 layers; the backward Din 3 only (Din 32 is voxel
+    training, ROADMAP A12)."""
+    t_in = [torch.from_numpy(a) for a in _voxel_inputs(1.0, H=tfs.KERNEL_HIDDEN)]
+    tfs._check_kernel_inputs(*t_in)
+    with pytest.raises(ValueError, match="A12"):
+        tfs._check_kernel_inputs(*t_in, name="film_siren_mlp_bwd", widths=(tfs.KERNEL_IN,))
+    narrow = [t[..., :5] if i == 0 else t[:5] if i == 3 else t for i, t in enumerate(t_in)]
+    with pytest.raises(ValueError, match="3 or 32"):
+        tfs._check_kernel_inputs(*narrow)
+    H = tfs.KERNEL_HIDDEN
+    deep = [torch.zeros(2, 9 * H) if i in (1, 2) else torch.zeros(8, H, H) if i == 5
+            else torch.zeros(8, H) if i == 6 else t for i, t in enumerate(t_in)]
+    with pytest.raises(ValueError, match="2 to 8"):
+        tfs._check_kernel_inputs(*deep)
+
+
 def test_folded_bf16_matches_jax_folded():
     j_in, t_in = _both(_inputs(N=100))
     j = jfs._folded_forward_jnp(*j_in, sin_fn=jfs._sin7, matmul_dtype=jnp.bfloat16)

@@ -222,14 +222,24 @@ def test_losses_and_schedules_match_jax():
 
 
 def test_bridge_maps_conv_kernels_and_refuses_3d():
+    """2-D conv kernels HWIO -> OIHW; 3-D ones (refused until the U-Net
+    came) DHWIO -> OIDHW, and a GroupNorm's scale -> weight."""
     _, params, tdisc = _discriminators(seed=15)
     sd = bridge.params_to_state_dict(_np_tree(params))
     kernel = np.asarray(params["params"]["layer_2"]["conv1"]["kernel"])  # HWIO
     np.testing.assert_array_equal(sd["layers.2.conv1.weight"].numpy(),
                                   kernel.transpose(3, 2, 0, 1))
     assert sd["final_layer.weight"].shape == tdisc.final_layer.weight.shape
-    with pytest.raises(NotImplementedError, match="A12"):
-        bridge.params_to_state_dict({"conv3d": {"kernel": np.zeros((3, 3, 3, 4, 8))}})
+    kernel3d = np.arange(3 * 3 * 3 * 4 * 8, dtype=np.float32).reshape(3, 3, 3, 4, 8)
+    sd3 = bridge.params_to_state_dict({"encoder_1": {"SingleConv2": {
+        "conv": {"kernel": kernel3d},
+        "groupnorm": {"scale": np.ones(4, np.float32), "bias": np.zeros(4, np.float32)}}}})
+    weight = sd3["encoders.1.conv2.conv.weight"].numpy()
+    assert weight.shape == (8, 4, 3, 3, 3)
+    np.testing.assert_array_equal(weight, kernel3d.transpose(4, 3, 0, 1, 2))
+    assert weight[5, 2, 0, 1, 2] == kernel3d[0, 1, 2, 2, 5]
+    assert set(sd3) == {"encoders.1.conv2.conv.weight", "encoders.1.conv2.norm.weight",
+                        "encoders.1.conv2.norm.bias"}
 
 
 def test_make_discriminator_refuses_unported_variants():
