@@ -47,10 +47,21 @@ Refuses to run without CUDA (exit 1). Otherwise:
      48 + 48 samples: launches of both kernels per request against the
      design's count, finite output in range, one render against the same
      render with both plain versions in the kernels' places, and one
-     profiled request.
-Prints one JSON line of kernel results, then the last line
-{"ok": true, "device": {...}}. Any failed check raises (non-zero exit);
-checks of phases 1b and 4-7 raise after phase 7, so one run reports them all.
+     profiled request;
+  8. the FiLM-SIREN kernel study: holds each study kernel (K3 point-major,
+     K4 v4 feature-major, K4 v5 interleaved) in each of its modes, at every
+     tile the study tool launches it with and at T 128, against its plain
+     version (`film_study_reference`) at the study shape (2 x 786,432, 4 x
+     256) and a ragged 2 x 1,000, times each mode and its plain version at
+     T 128, then runs the study tool's variants (the default set, the tile
+     sweeps, the other modes and K1 + K2's VJP) through `run_study`,
+     counting launches.
+Prints one JSON line of kernel results (each kernel's time beside its plain
+version's, the least time the card could take for the same work, and the
+one PyTorch call that computes the same function where there is one), then
+the last line {"ok": true, "device": {...}}. Any failed check raises
+(non-zero exit); checks of phases 1b and 4-8 raise after phase 8, so one run
+reports them all.
 """
 
 from __future__ import annotations
@@ -129,6 +140,29 @@ STEP_LOSS_TOL = 1e-4  # |kernel - plain| / |plain| for each loss [1.06e-6]
 STEP_GRAD_TOL = 5e-3  # |kernel - plain|_2 / |plain|_2 over a net's grads [8.75e-5]
 TRAIN_STEP = 16000  # stage 2 of the thesis curriculum, fade-in alpha 0.5
 TRAIN_TIMED_STEPS = 3
+# Phase 8 bounds for each study kernel against its plain version
+# `film_study_reference` (same bf16 operands, fp32 sums in another order),
+# on phase 1's inputs, in phase 1's style; relative to max(1, max|plain|)
+# (the `nosin` modes' outputs reach ~900). Each is about twice the largest
+# H100 reading over the nine (kernel, mode) pairs, their tiles and both
+# shapes [in brackets], far below the O(0.1-1) of a layout or masking fault.
+STUDY_LOW_TOL = 2e-3  # freq/30: max|kernel - plain| [9.65e-4, v3 nosin]
+STUDY_MEAN_TOL = 7e-5  # freq 25-45: mean|kernel - plain| [3.34e-5, v3/v4 single ragged]
+STUDY_Q999_TOL = 4e-3  # 99.9th percentile of |kernel - plain| [2.03e-3, the same]
+# max|kernel - fp64 sums| <= STUDY_VS_PLAIN x max|plain - fp64 sums| + 8
+# fp32 roundings of max|fp64 sums|, as in phase 1 [1.112, v3 nosin ragged]
+STUDY_VS_PLAIN = 1.25
+STUDY_TILE = 128  # points per CTA of the timed modes: K1's tile
+# peaks of an H100 SXM (NVIDIA's data sheet) for the bounds: dense bf16 on
+# the tensor cores, FP32 instructions on the CUDA cores (67 TFLOP/s counts
+# an FMA as two), HBM3
+H100_BF16_FLOPS = 989e12
+H100_FP32_INSTRUCTIONS = 33.5e12
+H100_HBM_BYTES = 3.35e12
+# FP32 instructions per activation element, the bias add included:
+# fast_sin (range reduction 4, square 1, 5 FMAs, 1 multiply), sin7 (4, 1, 3,
+# 1), accurate sinf (its fast path, about 20), 0.9 v (2)
+ACT_INSTRUCTIONS = {"fast_sin": 12, "sin7": 10, "sin": 20, "affine": 2}
 REQUESTS = 4
 BATCH = 2
 IMAGE_SIZE = 128
@@ -151,6 +185,39 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, bf16_flop: float, fp32_instructions: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it: the
+    bytes over HBM's rate, or the operations over their units' peaks (the
+    tensor cores and the FP32 pipes overlapping perfectly)."""
+    t_bytes = n_bytes / H100_HBM_BYTES * 1e3
+    t_ops = max(bf16_flop / H100_BF16_FLOPS, fp32_instructions / H100_FP32_INSTRUCTIONS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def film_bound(B: int, N: int, L: int, din: int, act0: str = "sin7", act: str = "sin7",
+               dot: bool = True, backward: bool = False) -> tuple[float, str]:
+    """`bound` of a FiLM-SIREN forward (or its VJP, `backward`) of B x N
+    points, H 256, 4 outputs: every product a bf16 product (layer 0, the
+    trunk unless `dot` is off, the head; the VJP recomputes the trunk, and
+    takes dX and dW of every layer), every activation element on the FP32
+    pipes (the VJP's sin7, cos7 and dpre: 20 instructions); the bytes of
+    each input read once and each output written once (points, cotangent,
+    folded weights; outputs, dX, weight grads)."""
+    H, C = 256, 4
+    weights = B * ((din * H + (L - 1) * H * H) * 2 + L * H * 4) + H * C * 2 + C * 4
+    trunk = (L - 1) * H * H if dot else 0
+    if backward:
+        macs = din * H + trunk + 2 * H * C + 2 * trunk + 2 * din * H
+        instructions = L * H * 20
+        grads = 2 * B * L * H + din * H + (L - 1) * H * H + L * H + H * C + C
+        n_bytes = B * N * (2 * din + C) * 4 + weights + 4 * grads
+    else:
+        macs = din * H + trunk + H * C
+        instructions = H * (ACT_INSTRUCTIONS[act0] + (L - 1) * ACT_INSTRUCTIONS[act])
+        n_bytes = B * N * (din + C) * 4 + weights
+    return bound(n_bytes, 2.0 * B * N * macs, float(B * N * instructions))
 
 
 def kernel_inputs(B: int, N: int, seed: int, device) -> dict[str, torch.Tensor]:
@@ -266,7 +333,9 @@ def phase1_kernel(device) -> dict:
             print(f"phase 1 [{label}] time: kernel {ms:.4f} ms, plain folded "
                   f"{plain_ms:.4f} ms ({B * N / ms / 1e3:.1f} Mpoints/s kernel)")
             if label == "thesis render":
-                row = dict(ms=ms, plain_ms=plain_ms)
+                bound_ms, bound_by = film_bound(B, N, 4, 3)
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
             del inp
     return dict(name="film_siren_fwd", route="cuda",
                 source="conditioned_nerf_gan_torch/csrc/film_siren_fwd.cu",
@@ -301,7 +370,9 @@ def phase1b_kernel_din32(device, failures: list) -> dict:
                   f"{plain_ms:.4f} ms ({B * N / ms / 1e3:.1f} Mpoints/s, "
                   f"{flop / ms / 1e9:.1f} TFLOP/s kernel)")
             if label == "study":
-                row = dict(ms=ms, plain_ms=plain_ms)
+                bound_ms, bound_by = film_bound(B, N, 8, 32)
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
             del inp
             torch.cuda.empty_cache()
     return dict(name="film_siren_fwd_din32", route="cuda",
@@ -593,10 +664,13 @@ def phase4_bwd(device, failures: list) -> dict:
         ms = cuda_ms(lambda: film_siren_mlp_bwd(*inp.values(), g), iters)
         plain_ms = cuda_ms(lambda: film_siren_mlp_folded_vjp(*inp.values(), g),
                            max(3, iters // 5))
+        bound_ms, bound_by = film_bound(B, N, 4, 3, backward=True)
         print(f"phase 4 [{label}] time: K2 {ms:.4f} ms, plain VJP {plain_ms:.4f} ms "
-              f"({B * N / ms / 1e3:.1f} Mpoints/s K2)")
+              f"({B * N / ms / 1e3:.1f} Mpoints/s K2), bound {bound_ms:.4f} ms "
+              f"({bound_by})")
         if label == "training chunk":
-            row = dict(ms=ms, plain_ms=plain_ms)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None)
         del inp, g
         torch.cuda.empty_cache()
     return dict(name="film_siren_bwd", route="cuda",
@@ -830,12 +904,18 @@ def phase6_trilinear(device, failures: list) -> dict:
                                                   padding_mode="border",
                                                   align_corners=False), iters)
             gathered = B * N * 8 * C * 4
+            # each input read once (volume, coords), the output written once;
+            # per point 7 lerps of C channels (a subtract and an FMA each)
+            # and ~30 instructions of anchors and weights
+            bound_ms, bound_by = bound(volume.numel() * 4 + B * N * (3 + C) * 4, 0.0,
+                                       float(B * N * (14 * C + 30)))
             print(f"phase 6 [{label}] time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"F.grid_sample (NCDHW, yardstick) {gs_ms:.4f} ms; kernel "
                   f"{B * N / ms / 1e3:.1f} Mpoints/s, {gathered / ms / 1e6:.1f} GB/s of "
-                  f"corner reads")
+                  f"corner reads; bound {bound_ms:.4f} ms ({bound_by})")
             if label == "study":
-                row = dict(ms=ms, plain_ms=plain_ms, grid_sample_ms=gs_ms)
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=gs_ms)
             del coords, out, plain, gs
     del volume, volume_ncdhw
     torch.cuda.empty_cache()
@@ -985,6 +1065,127 @@ def phase7_dg_serve(device, build_dir, failures: list):
     return launches, inf, requests[-1], dt
 
 
+def check_study(kernel: str, mode: str, tiles: list[int], label: str, inp: dict,
+                failures: list) -> float:
+    """Hold one study kernel in one mode, at each of its tiles (points per
+    CTA), against `film_study_reference` in phase 1's style (freq/30 max; at
+    freq 25-45 mean, p99.9 and distance to fp64 sums against the plain
+    version's), each relative to max(1, max|plain|); returns the largest
+    max|kernel - plain| at freq 25-45."""
+    from conditioned_nerf_gan_torch.ops.kernels.film_study import (
+        film_siren_study,
+        film_study_reference,
+    )
+
+    low_inp = dict(inp, freq=inp["freq"] / 30.0)
+    plain = film_study_reference(*inp.values(), kernel=kernel, mode=mode)
+    exact = film_study_reference(*inp.values(), kernel=kernel, mode=mode,
+                                 accum_dtype=torch.float64)
+    plain_low = film_study_reference(*low_inp.values(), kernel=kernel, mode=mode)
+    scale = max(1.0, plain.abs().max().item())
+    p64 = (plain - exact).abs().max().item()
+    floor = BWD_ULPS * exact.abs().max().item()
+    B, N, _ = inp["points"].shape
+    worst = 0.0
+    for tile in tiles:
+        out = film_siren_study(*inp.values(), kernel=kernel, mode=mode, tile=tile)
+        out_low = film_siren_study(*low_inp.values(), kernel=kernel, mode=mode, tile=tile)
+        err = (out - plain).abs().flatten()
+        worst = max(worst, err.max().item())
+        mean = err.mean().item() / scale
+        q999 = torch.quantile(err[:16_000_000], 0.999).item() / scale
+        k64 = (out - exact).abs().max().item()
+        low = ((out_low - plain_low).abs().max()
+               / max(1.0, plain_low.abs().max().item())).item()
+        print(f"phase 8 [{kernel} {mode} T={tile}, {label}] B={B} N={N}: max|plain| "
+              f"{plain.abs().max().item():.3e}; relative to max(1, max|plain|): freq/30 "
+              f"max {low:.3e} (bound {STUDY_LOW_TOL}); freq 25-45 mean {mean:.3e} (bound "
+              f"{STUDY_MEAN_TOL}), p99.9 {q999:.3e} (bound {STUDY_Q999_TOL}); max|kernel "
+              f"- fp64-sum| {k64:.3e} vs max|plain - fp64-sum| {p64:.3e} (ratio "
+              f"{k64 / max(p64, 1e-30):.3f}, bound {STUDY_VS_PLAIN} + {floor:.1e})")
+        if not (torch.isfinite(out).all() and low < STUDY_LOW_TOL and mean < STUDY_MEAN_TOL
+                and q999 < STUDY_Q999_TOL and k64 <= STUDY_VS_PLAIN * p64 + floor):
+            failures.append(f"phase 8 [{kernel} {mode} T={tile}, {label}]: kernel "
+                            "disagrees with its plain version")
+        del out, out_low, err
+    return worst
+
+
+def phase8_study(device, failures: list) -> tuple[list, dict]:
+    """The kernel study: every instance the study tool launches (and every
+    mode at T 128) checked at the study shape and a ragged N, each mode timed
+    at T 128, then the study tool's variants through its own function;
+    returns the JSON rows of K3, K4 v4 and K4 v5 and the launches of every
+    kernel counter in the tool's run."""
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp,
+        film_siren_mlp_bwd,
+    )
+    from conditioned_nerf_gan_torch.ops.kernels.film_study import (
+        STUDY_MODES,
+        film_siren_study,
+        film_study_reference,
+    )
+    from conditioned_nerf_gan_torch.tools import bench_film_kernel as study
+
+    sources = dict(v3=("film_siren_study_v3", "scripts/bench_film_kernel.py:75"),
+                   v4=("film_siren_study_v4", "scripts/bench_film_kernel.py:135"),
+                   v5=("film_siren_study_v5", "scripts/bench_film_kernel.py:164"))
+    tiles: dict[tuple[str, str], list[int]] = {}
+    for kernel, mode, tile in study.kernel_instances():
+        tiles.setdefault((kernel, mode), []).append(tile)
+    rows = []
+    with torch.no_grad():
+        for kernel, modes in STUDY_MODES.items():
+            worst, timed = 0.0, {}
+            for mode, (act0, act, dot) in modes.items():
+                for label, N in (("study", IMAGE_SIZE * IMAGE_SIZE * 48), ("ragged", 1000)):
+                    inp = kernel_inputs(2, N, seed=0, device=device)
+                    worst = max(worst, check_study(kernel, mode, tiles[(kernel, mode)],
+                                                   label, inp, failures))
+                    if label == "study":
+                        ms = cuda_ms(lambda: film_siren_study(
+                            *inp.values(), kernel=kernel, mode=mode, tile=STUDY_TILE), 20)
+                        plain_ms = cuda_ms(lambda: film_study_reference(
+                            *inp.values(), kernel=kernel, mode=mode), 4)
+                        bound_ms, bound_by = film_bound(2, N, 4, 3, act0, act, dot)
+                        timed[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                           bound_by=bound_by)
+                        print(f"phase 8 [{kernel} {mode}] time at 2 x {N}, T={STUDY_TILE}: "
+                              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                              f"{bound_ms:.4f} ms ({bound_by}; kernel at "
+                              f"{bound_ms / ms:.3f} of it)")
+                    del inp
+                    torch.cuda.empty_cache()
+            name, replaces = sources[kernel]
+            first = timed[next(iter(modes))]
+            rows.append(dict(name=name, route="cuda",
+                             source="conditioned_nerf_gan_torch/csrc/film_siren_study.cu",
+                             replaces=replaces, launches=0, max_abs_err=worst,
+                             ms=first["ms"], plain_ms=first["plain_ms"],
+                             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                             library_ms=None, mode=next(iter(modes)), modes=timed))
+
+    # the main path: the study tool's variants, through its own function
+    names = (list(study.DEFAULT_VARIANTS) + list(study.SWEEPS)
+             + ["jnpsin", "v4_nosin", "v4_nodot", "v4_sin7", "vjp_kernel"])
+    print("phase 8: " + study.header("cuda"))
+    for kernel in film_siren_study.launches:
+        film_siren_study.launches[kernel] = 0
+    film_siren_mlp.launches = film_siren_mlp_bwd.launches = 0
+    t0 = time.perf_counter()
+    study.run_study(names, "cuda")
+    launches = dict(film_siren_study.launches, k1=film_siren_mlp.launches,
+                    k2=film_siren_mlp_bwd.launches)
+    print(f"phase 8: {len(names)} variants in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    for kernel in STUDY_MODES:
+        if not launches[kernel]:
+            failures.append(f"phase 8: the study launched no {kernel} kernel")
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -1010,7 +1211,8 @@ def main() -> int:
         print("triton: not importable:", exc)
 
     t0 = time.perf_counter()
-    libs = build.load_libraries("film_siren_fwd", "film_siren_bwd", "trilinear_fwd")
+    libs = build.load_libraries("film_siren_fwd", "film_siren_bwd", "trilinear_fwd",
+                                "film_siren_study")
     print(f"built {len(libs)} kernel libraries in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -1033,17 +1235,24 @@ def main() -> int:
     (dg_k1, dg_tri), inf, last_request, last_s = phase7_dg_serve(
         device, Path(build.BUILD_DIR), failures)
     phase3_profile(inf, last_request, last_s, phase="phase 7 profile")
+    del inf
+    torch.cuda.empty_cache()
+    study_rows, study = phase8_study(device, failures)
     if failures:
         raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
-    fwd["launches"] = serve_launches + train_fwd
-    fwd["launches_by_path"] = {"serve": serve_launches, "train": train_fwd}
+    fwd["launches"] = serve_launches + train_fwd + study["k1"]
+    fwd["launches_by_path"] = {"serve": serve_launches, "train": train_fwd,
+                               "film_study": study["k1"]}
     fwd32["launches"] = dg_k1
     fwd32["launches_by_path"] = {"dg_serve": dg_k1}
-    bwd["launches"] = train_bwd
-    bwd["launches_by_path"] = {"train": train_bwd}
+    bwd["launches"] = train_bwd + study["k2"]
+    bwd["launches_by_path"] = {"train": train_bwd, "film_study": study["k2"]}
     tri["launches"] = dg_tri
     tri["launches_by_path"] = {"dg_serve": dg_tri}
-    print(json.dumps({"kernels": [fwd, fwd32, bwd, tri]}))
+    for row, kernel in zip(study_rows, ("v3", "v4", "v5")):
+        row["launches"] = study[kernel]
+        row["launches_by_path"] = {"film_study": study[kernel]}
+    print(json.dumps({"kernels": [fwd, fwd32, bwd, tri, *study_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,11 +16,17 @@ Layout (bottom-up, mirroring the JAX package):
     training/     losses, schedules, the GAN train step, the stage workload.
     infer/        the Inferencer and its CLI (`python -m
                   conditioned_nerf_gan_torch.infer`).
+    config/       the curriculum system and every preset.
+    data/         the ShapeNet reader, the EXR decoder, the native loader.
+    utils/        image grids.
+    tools/        the FiLM-SIREN kernel study (`python -m
+                  conditioned_nerf_gan_torch.tools.bench_film_kernel`).
     bridge.py     flax param tree / JAX checkpoint -> torch state_dict.
 
-Curricula (`conditioned_nerf_gan_tpu.config`) and the ShapeNet reader
-(`conditioned_nerf_gan_tpu.data`) import neither jax nor flax and are shared
-as they are.
+`config/`, `data/` and `utils/` are the port's own copies of the JAX
+package's modules of those names, which import no jax either; nothing here
+imports `conditioned_nerf_gan_tpu`, and the tests hold the copies equal to
+the originals.
 """
 
 __version__ = "0.1.0"

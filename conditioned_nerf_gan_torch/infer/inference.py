@@ -17,13 +17,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from conditioned_nerf_gan_tpu.config import (
+from ..config import (
     curriculum_from_json,
     curriculum_to_json,
     extract_metadata,
     load_curriculum,
 )
-
 from ..models.generator import ImplicitGenerator3d, RenderConfig
 from ..models.pointnet import ResnetPointnet, encode_pcl
 from ..models.unet3d import make_unet
@@ -103,9 +102,13 @@ class Inferencer:
                  input_voxel_resolution: int = 64, z_up: bool = False,
                  num_imgs: int = 8, image_size: int = 128,
                  ray_step_multiplier: int = 1, load_dataset: bool = True,
-                 seed: int = 0, device: str | torch.device = "cpu"):
+                 seed: int = 0, device: str | torch.device = "cuda"):
         self.checkpoint_path = Path(checkpoint_path)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Inferencer: device {str(device)!r} asked for, but no "
+                               "CUDA GPU is available; pass device=\"cpu\" to render "
+                               "with the fp32 plain path")
         self.num_imgs = num_imgs
         self.image_size = image_size
         self.ray_step_multiplier = ray_step_multiplier
@@ -117,7 +120,7 @@ class Inferencer:
         self.curriculum = self._get_curriculum(input_voxel_resolution)
         self._set_models()
         if load_dataset:
-            from conditioned_nerf_gan_tpu.data import ShapeNetDataset
+            from ..data import ShapeNetDataset
 
             ds = self.curriculum["dataset"]
             self.valset = ShapeNetDataset(
@@ -221,7 +224,7 @@ class Inferencer:
         return self._inference_camera(fixed=False)
 
     def _inference_camera(self, fixed: bool) -> Path:
-        from conditioned_nerf_gan_tpu.utils.image import save_image_grid
+        from ..utils.image import save_image_grid
 
         n = min(self.num_imgs, len(self.valset))
         indices = (random.sample(range(len(self.valset)), n) if fixed

@@ -10,8 +10,10 @@ package's (which replicate PyTorch's), drawn from an explicit
   * kaiming_leaky(a=0.2): W ~ N(0, gain^2/fan_in), gain = sqrt(2/(1+a^2)),
                           times `scale` (0.25 on the mapping net's last layer)
 
-Everything here is fp32. Do not wrap it in `torch.autocast`: the sin inputs
-must stay fp32 (freq*x with freq ~ 30-45 is far too coarse in bf16).
+Everything here is fp32 but `FiLMLayer` under a `compute_dtype`, which does
+what the JAX layer does under its bf16 policy. Do not wrap any of it in
+`torch.autocast`: the sin inputs must stay fp32 (freq*x with freq ~ 30-45 is
+far too coarse in bf16).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import Callable
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.fastmath import fast_sin
 
 Init = Callable[[torch.Tensor, "torch.Generator | None"], None]
 
@@ -87,17 +91,36 @@ class TorchLinear(nn.Module):
 
 
 class FiLMLayer(nn.Module):
-    """sin(freq * (W x + b) + phase), fp32. freq/phase are per batch element
-    (B, F), broadcast over the point axis, or per point (B, N, F)."""
+    """sin(freq * (W x + b) + phase). freq/phase are per batch element (B, F),
+    broadcast over the point axis, or per point (B, N, F).
+
+    fp32 with `torch.sin`, unless a `compute_dtype` is set and freq is per
+    batch element: then the JAX layer's policy (models/layers.py FiLMLayer
+    and TorchLinear's fold_scale branch): freq folded into the weights and
+    rounded to compute_dtype, x rounded to it, products summed in fp32, plus
+    bias * freq and the phase, `fast_sin` (with `use_fast_sin`) or
+    `torch.sin` in fp32, the output stored in compute_dtype."""
 
     def __init__(self, in_features: int, hidden_dim: int, *,
                  kernel_init: Init = frequency_init(25),
+                 compute_dtype: torch.dtype | None = None, use_fast_sin: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.linear = TorchLinear(in_features, hidden_dim, kernel_init=kernel_init,
                                   generator=generator)
+        self.compute_dtype = compute_dtype
+        self.use_fast_sin = use_fast_sin
 
     def forward(self, x, freq, phase_shift):
+        if self.compute_dtype is not None and freq.ndim == 2 and x.ndim == 3:
+            dt = self.compute_dtype
+            scaled = (self.linear.weight.t()[None] * freq[:, None, :]).to(dt)
+            # operands rounded to dt, multiplied and summed in fp32 (a dt
+            # matmul would round its output too)
+            y = torch.bmm(x.to(dt).float(), scaled.float())
+            y = y + (self.linear.bias * freq)[:, None, :]
+            sin = fast_sin if self.use_fast_sin else torch.sin
+            return sin(y + phase_shift[:, None, :]).to(dt)
         x = self.linear(x)
         if freq.ndim == x.ndim - 1:
             freq = freq[:, None, :]

@@ -21,8 +21,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 
-from conditioned_nerf_gan_tpu.config.presets import resolve_siren_alias
-
+from ..config.presets import resolve_siren_alias
 from ..ops.grid_sample import trilinear_point_features
 from ..ops.kernels.film_siren import film_siren_mlp
 from .layers import (
@@ -151,6 +150,7 @@ class ConditionedSiren(nn.Module):
         self.film_layers = nn.ModuleList([
             FiLMLayer(input_dim if i == 0 else hidden_dim, hidden_dim,
                       kernel_init=first_layer_film_sine_init if i == 0 else finit,
+                      compute_dtype=compute_dtype, use_fast_sin=use_fast_sin,
                       generator=generator)
             for i in range(n_film)
         ])
@@ -197,7 +197,8 @@ class ConditionedSiren(nn.Module):
             H = self.hidden_dim
             for i, layer in enumerate(self.film_layers):
                 x = layer(x, freq[..., i * H:(i + 1) * H], phase[..., i * H:(i + 1) * H])
-            rgb_sigma = self.final_layer(x)
+            # the head is fp32, as in JAX, on the compute_dtype activations
+            rgb_sigma = self.final_layer(x.float())
         if self.spec.output == "sigmoid_rgb":
             rgb_sigma = sigmoid_rgb(rgb_sigma)
         return rgb_sigma

@@ -233,7 +233,8 @@ def _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf,
             raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
     B, N, din = points.shape
     if din not in widths:
-        later = " (Din 32 comes with voxel training, ROADMAP A12)" if din == 32 else ""
+        later = (" (Din 32 comes with voxel training, ROADMAP A12)"
+                 if din == 32 and name == "film_siren_mlp_bwd" else "")
         raise ValueError(f"{name}: points have {din} features, the kernel takes "
                          f"{' or '.join(map(str, widths))}{later}")
     L = 1 + ws.shape[0]

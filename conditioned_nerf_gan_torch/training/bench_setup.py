@@ -15,8 +15,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from conditioned_nerf_gan_tpu.config import extract_metadata, load_curriculum
-
+from ..config import extract_metadata, load_curriculum
 from ..infer.inference import build_models
 from ..models.discriminators import make_discriminator
 from ..ops.rays import create_cam2world_matrix, sample_camera_positions

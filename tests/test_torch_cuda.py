@@ -1,6 +1,7 @@
 """Card-only tests of the hand-written CUDA kernels (marker `cuda`): the
-FiLM-SIREN forward (K1, at Din 3 and 32) and backward (K2), and the
-trilinear sampler, against their plain versions.
+FiLM-SIREN forward (K1, at Din 3 and 32) and backward (K2), the trilinear
+sampler and the study kernels (K3, K4 v4 and v5), against their plain
+versions.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where only the port is installed:
@@ -12,8 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+import conditioned_nerf_gan_torch.ops.kernels.film_study as tstudy
 from conditioned_nerf_gan_torch.ops import grid_sample as tgs
 from conditioned_nerf_gan_torch.ops.kernels import film_siren as tfs
+from conditioned_nerf_gan_torch.tools.bench_film_kernel import (
+    ARGS,
+    kernel_instances,
+    make_inputs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -232,3 +239,38 @@ def test_trilinear_kernel_refuses_what_it_does_not_take(volume_coords):
     with pytest.raises(ValueError, match="on"):
         tgs.trilinear_point_features(vol, coords.cpu())
 
+
+# every instance the study launches, and every mode at 128 points per CTA
+STUDY_CASES = [(k, m, t, n) for k, m, t in kernel_instances() for n in (256, 1000)]
+
+
+@pytest.mark.parametrize("kernel,mode,tile,n", STUDY_CASES,
+                         ids=[f"{k}-{m}-{t}-{n}" for k, m, t, n in STUDY_CASES])
+def test_study_kernel_matches_plain(kernel, mode, tile, n):
+    """Each study kernel at a small and a ragged N against its plain version
+    at freq/30 (the script's input distribution), where no rounding flip
+    grows: a layout or masking fault is O(1). The bound is relative above 1
+    for `nosin`, whose outputs reach ~10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = make_inputs(0, n)
+    arrays["freq"] = arrays["freq"] / np.float32(30)
+    args = [torch.from_numpy(arrays[k]).cuda() for k in ARGS]
+    before = tstudy.film_siren_study.launches[kernel]
+    with torch.no_grad():
+        out = tstudy.film_siren_study(*args, kernel=kernel, mode=mode, tile=tile)
+        plain = tstudy.film_study_reference(*args, kernel=kernel, mode=mode)
+    torch.cuda.synchronize()
+    assert tstudy.film_siren_study.launches[kernel] == before + 1
+    assert out.shape == (2, n, 4) and torch.isfinite(out).all()
+    err = (out - plain).abs().max().item() / max(1.0, plain.abs().max().item())
+    assert err < 5e-3
+
+
+def test_study_kernel_refuses_an_uncompiled_instance():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    args = [torch.from_numpy(v).cuda() for v in make_inputs(0, 256).values()]
+    with pytest.raises(ValueError, match="no instance of v4 sin7 at 32 points"):
+        tstudy.film_siren_study(*args, kernel="v4", mode="sin7", tile=32)

@@ -186,21 +186,52 @@ def test_cli_refuses_unported_features(converted_run, capsys):
 
 
 def test_port_imports_without_jax():
-    """Every port module (and chip_smoke.py) imports with jax and flax
-    blocked; only bridge.convert_checkpoint reaches for flax, lazily."""
+    """Every port module (and chip_smoke.py) imports with jax, flax and the
+    JAX package blocked; only bridge.convert_checkpoint reaches for flax,
+    lazily."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['conditioned_nerf_gan_tpu'] = None\n"
         "import conditioned_nerf_gan_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "assert 'jax' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "assert not [m for m in loaded if m.split('.')[0] in "
+        "('jax', 'flax', 'conditioned_nerf_gan_tpu')], loaded\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 30
+
+
+def test_port_sources_never_import_the_jax_package():
+    """No import statement of the port names conditioned_nerf_gan_tpu: the
+    port keeps its own copies of the config, data and image modules."""
+    import ast
+
+    offenders = []
+    for path in sorted((REPO / "conditioned_nerf_gan_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            offenders += [f"{path.name}: {n}" for n in names
+                          if n.split(".")[0] in ("conditioned_nerf_gan_tpu", "jax")]
+    assert offenders == []
+
+
+def test_inferencer_defaults_to_cuda_and_refuses_without_it(converted_run, monkeypatch):
+    """Without a card, an Inferencer built with the default device raises
+    and names device="cpu"; it never carries on on the CPU."""
+    from conditioned_nerf_gan_torch.infer import Inferencer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Inferencer(converted_run, image_size=16, load_dataset=False)
+    inf = Inferencer(converted_run, image_size=16, load_dataset=False, device="cpu")
+    assert next(inf.generator.parameters()).device.type == "cpu"
