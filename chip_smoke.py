@@ -8,10 +8,11 @@ Refuses to run without CUDA (exit 1). Otherwise:
      and triton, and builds the CUDA kernels from `conditioned_nerf_gan_torch/csrc`;
   1. holds the FiLM-SIREN kernel against its plain torch version
      (`film_siren_mlp_folded`, same bf16-operand math) at the thesis render
-     shape, at the ray-chunk shape the main path gives it, and at a ragged N,
-     and times both with CUDA events;
- 1b. the same at the voxel family's shape (Din 32, 8 layers) at 2 x 786,432
-     and a ragged 2 x 1,000;
+     shape, at the training chunk (12 x 49,152, where most of its main-path
+     launches run), at the serving ray chunk and at a ragged N, and times
+     both with CUDA events, each time beside its bound and kernel / bound;
+ 1b. the same at the voxel family's shape (Din 32, 8 layers) at 2 x 786,432,
+     at the `dg` serving ray chunk (2 x 49,152) and a ragged 2 x 1,000;
   2. drives the port's serving path: the thesis model (`thousand` preset +
      special.py: PointNet 512/512, SHORTSIREN z 512, 4 x 256) with seeded
      random weights is saved as a port checkpoint, loaded by `Inferencer`,
@@ -26,7 +27,8 @@ Refuses to run without CUDA (exit 1). Otherwise:
      (`film_siren_mlp_folded_vjp`, same bf16 roundings) at the 1.57M-point
      study shape, at the training chunk the main path gives it and at a
      ragged N: norm-relative error, a low-frequency max, distance to fp64
-     sums against the plain version's, bitwise-equal repeats; and times both;
+     sums against the plain version's, bitwise-equal repeats; and times both,
+     beside the bound;
   5. drives the port's training path: the thesis model at stage 2 (step
      16000, fade-in alpha 0.5) at full width, the discriminator with R1,
      batch 12 at 128^2, 48 + 48 samples, ray_chunks 16, through
@@ -53,12 +55,15 @@ Refuses to run without CUDA (exit 1). Otherwise:
      tile the study tool launches it with and at T 128, against its plain
      version (`film_study_reference`) at the study shape (2 x 786,432, 4 x
      256) and a ragged 2 x 1,000, times each mode and its plain version at
-     T 128, then runs the study tool's variants (the default set, the tile
-     sweeps, the other modes and K1 + K2's VJP) through `run_study`,
-     counting launches.
+     T 128, prints K1's phase-1 time at 2 x 786,432 beside K4 v4 `sin7`'s
+     (K1's function in its earlier mma.sync design, the same run), then runs the
+     study tool's variants (the default set, the tile sweeps, the other
+     modes and K1 + K2's VJP) through `run_study`, counting launches.
 Prints one JSON line of kernel results (each kernel's time beside its plain
 version's, the least time the card could take for the same work, and the
-one PyTorch call that computes the same function where there is one), then
+one PyTorch call that computes the same function where there is one; K1 and
+K2 at the training chunk, the `dg` K1 at its serving chunk, the other shapes
+under `ms_by_shape`), then
 the last line {"ok": true, "device": {...}}. Any failed check raises
 (non-zero exit); checks of phases 1b and 4-8 raise after phase 8, so one run
 reports them all.
@@ -171,6 +176,29 @@ PCL_POINTS = 2048
 
 def run(cmd: list[str]) -> str:
     return subprocess.run(cmd, check=True, capture_output=True, text=True).stdout.strip()
+
+
+def print_code_size(library) -> None:
+    """Each kernel's SASS instruction count in a built library (cuobjdump):
+    a kernel whose code outgrows the instruction cache runs at the rate its
+    code is fetched."""
+    import re
+    from pathlib import Path
+
+    from conditioned_nerf_gan_torch.ops.kernels import build
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        print(f"  SASS: {tool} not found; code size not measured")
+        return
+    sass = run([str(tool), "-sass", str(library)])
+    for body in sass.split("Function : ")[1:]:
+        mangled = body.split()[0]
+        name = re.search(r"\d(film_siren_[a-z0-9_]+?)(?:E|I)", mangled)
+        din = re.search(r"ILi(\d+)E", mangled)
+        label = (name.group(1) if name else mangled[:60]) + (f"<{din.group(1)}>" if din else "")
+        count = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))
+        print(f"  SASS: {label}: {count} instructions")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -308,8 +336,29 @@ def check_kernel(label: str, inp: dict[str, torch.Tensor], phase: str = "phase 1
     return err.max().item(), failure
 
 
+def timed_row(phase: str, label: str, B: int, N: int, fn, plain_fn, bound_ms: float,
+              bound_by: str, iters: int) -> dict:
+    """Time a kernel and its plain version at one shape (CUDA events) and
+    print both beside the bound; returns the shape's numbers."""
+    ms = cuda_ms(fn, iters)
+    plain_ms = cuda_ms(plain_fn, max(3, iters // 5))
+    print(f"{phase} [{label}] time at {B} x {N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), kernel / bound {ms / bound_ms:.2f} "
+          f"({B * N / ms / 1e3:.1f} Mpoints/s kernel)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def shape_row(timed: dict, main: str) -> dict:
+    """The JSON row's numbers at the main path's shape `main`, the other
+    shapes' under ms_by_shape."""
+    row = dict(timed[main], library_ms=None, shape=main)
+    row["ms_by_shape"] = {label: t for label, t in timed.items() if label != main}
+    return row
+
+
 def phase1_kernel(device) -> dict:
-    """Kernel vs plain folded at the main path's shapes; returns the JSON row."""
+    """Kernel vs plain folded at the main path's shapes; returns the JSON row
+    (times at the training chunk, where most of K1's launches run)."""
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
         film_siren_mlp,
         film_siren_mlp_folded,
@@ -317,8 +366,9 @@ def phase1_kernel(device) -> dict:
 
     chunk_n = IMAGE_SIZE * IMAGE_SIZE // 16 * 48
     shapes = [("thesis render", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
-              ("main-path ray chunk", 2, chunk_n), ("ragged", 2, 1000)]
-    worst, row = 0.0, {}
+              ("training chunk", 12, chunk_n), ("main-path ray chunk", 2, chunk_n),
+              ("ragged", 2, 1000)]
+    worst, timed = 0.0, {}
     with torch.no_grad():
         for label, B, N in shapes:
             inp = kernel_inputs(B, N, seed=0, device=device)
@@ -326,34 +376,30 @@ def phase1_kernel(device) -> dict:
             if failure:
                 raise AssertionError(failure)
             worst = max(worst, err)
-            iters = 20 if N > 100_000 else 50
-            ms = cuda_ms(lambda: film_siren_mlp(*inp.values()), iters)
-            plain_ms = cuda_ms(lambda: film_siren_mlp_folded(*inp.values()),
-                               max(3, iters // 5))
-            print(f"phase 1 [{label}] time: kernel {ms:.4f} ms, plain folded "
-                  f"{plain_ms:.4f} ms ({B * N / ms / 1e3:.1f} Mpoints/s kernel)")
-            if label == "thesis render":
-                bound_ms, bound_by = film_bound(B, N, 4, 3)
-                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None)
+            timed[label] = timed_row(
+                "phase 1", label, B, N, lambda: film_siren_mlp(*inp.values()),
+                lambda: film_siren_mlp_folded(*inp.values()), *film_bound(B, N, 4, 3),
+                20 if B * N > 100_000 else 50)
             del inp
     return dict(name="film_siren_fwd", route="cuda",
                 source="conditioned_nerf_gan_torch/csrc/film_siren_fwd.cu",
                 replaces="conditioned_nerf_gan_tpu/ops/pallas/film_siren.py:156",
-                launches=0, max_abs_err=worst, **row)
+                launches=0, max_abs_err=worst, **shape_row(timed, "training chunk"))
 
 
 def phase1b_kernel_din32(device, failures: list) -> dict:
     """K1 at the voxel family's shape (32 sampled features, 8 layers) vs
-    plain folded, at the study size and a ragged N; returns the JSON row."""
+    plain folded, at the study size, the `dg` serving ray chunk and a ragged
+    N; returns the JSON row (times at the ray chunk, the main path's shape)."""
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
         film_siren_mlp,
         film_siren_mlp_folded,
     )
 
-    shapes = [("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48), ("ragged", 2, 1000)]
+    shapes = [("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
+              ("dg ray chunk", 2, IMAGE_SIZE * IMAGE_SIZE // 16 * 48), ("ragged", 2, 1000)]
     bounds = (DIN32_LOW_TOL, DIN32_MEAN_TOL, DIN32_Q999_TOL, DIN32_VS_PLAIN)
-    worst, row = 0.0, {}
+    worst, timed = 0.0, {}
     with torch.no_grad():
         for label, B, N in shapes:
             inp = voxel_kernel_inputs(B, N, seed=1, device=device)
@@ -361,24 +407,18 @@ def phase1b_kernel_din32(device, failures: list) -> dict:
             if failure:
                 failures.append(failure)
             worst = max(worst, err)
-            iters = 10 if N > 100_000 else 50
-            ms = cuda_ms(lambda: film_siren_mlp(*inp.values()), iters)
-            plain_ms = cuda_ms(lambda: film_siren_mlp_folded(*inp.values()),
-                               max(3, iters // 5))
+            timed[label] = timed_row(
+                "phase 1b", label, B, N, lambda: film_siren_mlp(*inp.values()),
+                lambda: film_siren_mlp_folded(*inp.values()), *film_bound(B, N, 8, 32),
+                10 if B * N > 100_000 else 50)
             flop = 2 * B * N * 256 * (32 + 7 * 256 + 4)
-            print(f"phase 1b [{label}] time: kernel {ms:.4f} ms, plain folded "
-                  f"{plain_ms:.4f} ms ({B * N / ms / 1e3:.1f} Mpoints/s, "
-                  f"{flop / ms / 1e9:.1f} TFLOP/s kernel)")
-            if label == "study":
-                bound_ms, bound_by = film_bound(B, N, 8, 32)
-                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None)
+            print(f"phase 1b [{label}] {flop / timed[label]['ms'] / 1e9:.1f} TFLOP/s kernel")
             del inp
             torch.cuda.empty_cache()
     return dict(name="film_siren_fwd_din32", route="cuda",
                 source="conditioned_nerf_gan_torch/csrc/film_siren_fwd.cu",
                 replaces="conditioned_nerf_gan_tpu/ops/pallas/film_siren.py:156",
-                launches=0, max_abs_err=worst, **row)
+                launches=0, max_abs_err=worst, **shape_row(timed, "dg ray chunk"))
 
 
 def make_pcl(rng: np.random.Generator, n_boxes: int = 3,
@@ -656,27 +696,20 @@ def phase4_bwd(device, failures: list) -> dict:
     shapes = [("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
               ("training chunk", 12, IMAGE_SIZE * IMAGE_SIZE // 16 * 48),
               ("ragged", 2, 1000)]
-    worst, row = 0.0, {}
+    worst, timed = 0.0, {}
     for label, B, N in shapes:
         inp, g = bwd_inputs(B, N, seed=0, device=device)
         worst = max(worst, check_bwd(label, inp, g, failures))
-        iters = 10 if B * N > 100_000 else 50
-        ms = cuda_ms(lambda: film_siren_mlp_bwd(*inp.values(), g), iters)
-        plain_ms = cuda_ms(lambda: film_siren_mlp_folded_vjp(*inp.values(), g),
-                           max(3, iters // 5))
-        bound_ms, bound_by = film_bound(B, N, 4, 3, backward=True)
-        print(f"phase 4 [{label}] time: K2 {ms:.4f} ms, plain VJP {plain_ms:.4f} ms "
-              f"({B * N / ms / 1e3:.1f} Mpoints/s K2), bound {bound_ms:.4f} ms "
-              f"({bound_by})")
-        if label == "training chunk":
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=None)
+        timed[label] = timed_row(
+            "phase 4", label, B, N, lambda: film_siren_mlp_bwd(*inp.values(), g),
+            lambda: film_siren_mlp_folded_vjp(*inp.values(), g),
+            *film_bound(B, N, 4, 3, backward=True), 10 if B * N > 100_000 else 50)
         del inp, g
         torch.cuda.empty_cache()
     return dict(name="film_siren_bwd", route="cuda",
                 source="conditioned_nerf_gan_torch/csrc/film_siren_bwd.cu",
                 replaces="conditioned_nerf_gan_tpu/ops/pallas/film_siren.py:232",
-                launches=0, max_abs_err=worst, **row)
+                launches=0, max_abs_err=worst, **shape_row(timed, "training chunk"))
 
 
 class PlainFilmSiren(torch.autograd.Function):
@@ -1111,12 +1144,13 @@ def check_study(kernel: str, mode: str, tiles: list[int], label: str, inp: dict,
     return worst
 
 
-def phase8_study(device, failures: list) -> tuple[list, dict]:
+def phase8_study(device, failures: list, k1_ms: float) -> tuple[list, dict]:
     """The kernel study: every instance the study tool launches (and every
     mode at T 128) checked at the study shape and a ragged N, each mode timed
-    at T 128, then the study tool's variants through its own function;
-    returns the JSON rows of K3, K4 v4 and K4 v5 and the launches of every
-    kernel counter in the tool's run."""
+    at T 128, K1's phase-1 time `k1_ms` at the study shape beside K4 v4
+    sin7's (K1's function in its earlier mma.sync design), then the study tool's variants
+    through its own function; returns the JSON rows of K3, K4 v4 and K4 v5
+    and the launches of every kernel counter in the tool's run."""
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
         film_siren_mlp,
         film_siren_mlp_bwd,
@@ -1165,6 +1199,12 @@ def phase8_study(device, failures: list) -> tuple[list, dict]:
                              ms=first["ms"], plain_ms=first["plain_ms"],
                              bound_ms=first["bound_ms"], bound_by=first["bound_by"],
                              library_ms=None, mode=next(iter(modes)), modes=timed))
+
+    old = next(r for r in rows if r["name"] == "film_siren_study_v4")["modes"]["sin7"]["ms"]
+    print(f"phase 8: K1's function at 2 x {IMAGE_SIZE * IMAGE_SIZE * 48}, the same run: "
+          f"K1 (wgmma + TMA trunk) {k1_ms:.4f} ms (phase 1), K4 v4 sin7 at T "
+          f"{STUDY_TILE} (the earlier mma.sync design) {old:.4f} ms; K1 / v4 sin7 "
+          f"{k1_ms / old:.3f}")
 
     # the main path: the study tool's variants, through its own function
     names = (list(study.DEFAULT_VARIANTS) + list(study.SWEEPS)
@@ -1218,8 +1258,11 @@ def main() -> int:
     for lib in libs:
         print(f"built {lib.path.name} in {lib.build_seconds:.2f} s")
         for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line or "bytes stack" in line:
-                print("  ptxas:", line.strip())
+            if (("Used" in line and "registers" in line) or "spill" in line
+                    or "bytes stack" in line or "C7520" in line or "C7512" in line):
+                print("  ptxas:", line.strip()[:240])
+        if lib.name in ("film_siren_fwd", "film_siren_bwd"):
+            print_code_size(lib.path)
 
     failures: list[str] = []
     fwd = phase1_kernel(device)
@@ -1237,7 +1280,8 @@ def main() -> int:
     phase3_profile(inf, last_request, last_s, phase="phase 7 profile")
     del inf
     torch.cuda.empty_cache()
-    study_rows, study = phase8_study(device, failures)
+    study_rows, study = phase8_study(device, failures,
+                                     fwd["ms_by_shape"]["thesis render"]["ms"])
     if failures:
         raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
     fwd["launches"] = serve_launches + train_fwd + study["k1"]

@@ -13,400 +13,425 @@
 //   weights    dWsf[b,l] = h_l^T dpre_{l+1}, dcs[b,l] = 1^T dpre_{l+1},
 //              dW0f[b] = x^T dpre_0, dc0[b] = 1^T dpre_0,
 //              dWf[b] = h_{L-1}^T gb, dbf[b] = 1^T gb        (summed over points)
-// with bf16 operands and fp32 sums throughout.
+// with bf16 operands and fp32 sums throughout. Points of 3 features only.
 //
-// What bounds it: the recompute and the sweep are 2 x 3 x 256 x 256 x 2 FLOP
-// per point on the tensor cores; the weight grads another 3 x 256 x 256 x 2
-// summed over every point of a batch element, a reduction across the point
-// axis.
+// What bounds it: the recompute and the sweep are 2 x (L-1) x 256 x 256 x 2
+// FLOP per point on the tensor cores, the weight grads another (L-1) x 256 x
+// 256 x 2 summed over every point of a batch element; and the bf16 scratch
+// below: at L = 4, 2 KB of h_l and 2 KB of dpre_l written per point and read
+// back once (the cos_l round trip between the sweep's two halves mostly stays
+// in L2), ~1.4 ms of HBM traffic at 12 x 49,152 points, twice the products.
 //
 // What the design does about it. The TPU kernel keeps h_l and cos_l of a
 // 2048-point tile resident (~4 MB of VMEM) and sums the weight grads by
 // revisiting one output block in grid order. Neither carries over: 4 layers x
 // 256 x 2 bf16 tensors are 4 KB per point, and CTAs run in parallel and in no
 // order. So the VJP is three kernels:
-//   (a) film_siren_bwd_sweep: one CTA per batch element x 128 points, the
-//       forward kernel's layout (8 warps of 64 x 64 mma.sync m16n8k16 fp32
-//       accumulators, 32-row weight chunks streamed through a 3-stage
-//       cp.async ring that runs on from the forward layers into the backward
-//       ones, which read W^T). It writes h_l and cos_l to device memory in
-//       the forward epilogues; each backward epilogue reads cos_l back at the
-//       same accumulator positions it was written from (same thread, no
-//       barrier needed) and overwrites it with dpre_l. It also writes dX and
-//       the bf16 points and cotangent, padded to 16 columns. Scratch: 4 KB per
-//       point (2.4 GB for 12 x 49,152 points).
-//   (b) film_siren_bwd_wgrad: one CTA per 128 x 128 tile of one weight grad of
-//       one batch element and one segment of (at least 4,096) points. It
-//       loops over the segment's points in order: 32-point chunks of both
-//       operands through a 3-stage cp.async ring, mma.sync with fp32
-//       accumulators; the CTAs of the first row tile also sum dpre's columns
-//       (the ones row), Kahan-compensated. Each CTA writes its partial tile;
+//   (a) film_siren_bwd_sweep, on the trunk of film_siren_trunk.cuh (wgmma, a
+//       TMA weight ring under mbarriers, a producer warpgroup and two
+//       consumer warpgroups taking turns, a persistent grid over 128-point
+//       tiles). The ring runs on from the forward chunks (Wsf^T, K-major)
+//       into the backward ones (Wsf itself is K-major for dh = dpre . W^T).
+//       Each epilogue stages its bf16 result in shared memory (stmatrix);
+//       TMA bulk stores write it to the scratch while the next layer's
+//       products run, and the same buffer is their A operand, read through a
+//       descriptor: h needs
+//       no registers during the products, and the sweep does not spill (with
+//       A in registers it spilled, and with ~200 KB of shared memory beside
+//       them the spills miss L1). The forward epilogues
+//       take sin7 and cos7 from one range reduction and store h_l and cos_l;
+//       the last keeps cos in its buffer, and dpre_{L-1} = bf16(gb . Wf^T *
+//       cos) comes from g and Wf on the FMA units; each backward epilogue
+//       reads cos_l back (cp.async, while the products run) and stores dpre_l
+//       over it. dX comes from dpre_0 on the FMA units. It also writes the
+//       bf16 points and cotangent as one 64-column row per point (x in
+//       columns 0-2, g in 3-6). Scratch: 4 KB + 128 bytes per point. What
+//       set its pace was its code: one loop holds every layer's epilogue and
+//       the next layer's products, once each; with the layers unrolled the
+//       sweep ran at the rate its instructions were fetched, far below the
+//       FP32 rate in the epilogues, and took about twice as long;
+//   (b) film_siren_bwd_wgrad, persistent and warp-specialised like the trunk:
+//       a work item is one (segment of points, batch element, 128-row tile of
+//       one weight grad). The producer TMA-loads 64-point chunks of both
+//       operands (point-major in memory, so wgmma reads both MN-major) into a
+//       4-stage mbarrier ring; two consumer warpgroups run wgmma
+//       m64n256k16 over them, 64 rows each, and sum the columns for dc from
+//       the same shared-memory chunk (16-byte loads of 8 columns, plain sums
+//       within a chunk, Kahan-compensated across chunks, the 8 warps' sums
+//       added in warp order). dW0f and dWf are 64-row tiles over the
+//       point/cotangent rows: x^T dpre_0 (rows 0-2) and gb^T h_{L-1} (rows
+//       3-6, stored transposed); dbf sums columns 3-6;
 //   (c) film_siren_bwd_reduce sums the segments' partials in segment order.
-//       Per-segment partials give the B = 2 study shape 6,144 CTAs where a
-//       whole-N loop per tile had 32, and cut each serial fp32 sum from N/16
-//       tensor-core steps to 256 plus one per segment. No atomics: every sum
-//       runs in the same order in every launch, so the grads are bitwise
-//       deterministic from run to run.
-// The small products (dW0f: 3 rows, dWf: 4 columns) run as mostly-empty
-// 128 x 128 tiles of (b) (16 tiles per batch element and segment, 4 of them
-// small). wgmma, TMA and warp specialisation are left for later work.
+//       No atomics: every sum runs in the same order in every launch, so the
+//       grads are bitwise deterministic from run to run.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "film_siren_trunk.cuh"
 
 namespace {
 
-constexpr int H = 256;        // hidden width (SHORTSIREN)
-constexpr int DIN = 3;        // xyz
-constexpr int COUT = 4;       // rgb + sigma
-constexpr int PADC = 16;      // columns of the padded point / cotangent scratch
-constexpr int T = 128;        // points per sweep CTA
-constexpr int KC = 32;        // weight rows per pipeline chunk
-constexpr int NSTAGE = 3;     // cp.async ring depth
-constexpr int PITCH = H + 8;  // shared-memory row pitch in bf16
-constexpr int THREADS = 256;  // 8 warps
-constexpr int CHUNKS_PER_LAYER = H / KC;
+using namespace film_trunk;
 
-// weight-grad kernel
-constexpr int BT = 128;          // output tile (rows and columns)
-constexpr int WKC = 32;          // points per chunk
-constexpr int WPITCH = BT + 8;   // shared-memory row pitch in bf16
-constexpr int JOB_TILES = 4;     // tiles of the largest job (256 x 256)
+constexpr int DIN = 3;      // xyz
+constexpr int XG_COLS = 64; // columns of the point/cotangent scratch (one 128-byte row)
+constexpr int XG_G = 3;     // its first cotangent column
 
-constexpr float TWO_PI = 6.28318530717958647692f;
-constexpr float INV_TWO_PI = 0.15915494309189533577f;
-constexpr float S1 = 9.9926289884e-01f;
-constexpr float S3 = -1.6565644419e-01f;
-constexpr float S5 = 7.9559223702e-03f;
-constexpr float S7 = -1.4495299408e-04f;
-// cos7 coefficients, rounded from the double products as torch and JAX do
-constexpr float C3 = (float)(3.0 * -1.6565644419e-01);
-constexpr float C5 = (float)(5.0 * 7.9559223702e-03);
-constexpr float C7 = (float)(7.0 * -1.4495299408e-04);
+// ---- the sweep -----------------------------------------------------------------
 
-__device__ __forceinline__ float reduce_range(float x) {
-  // without FMA contraction, as the torch version computes it
-  return __fsub_rn(x, __fmul_rn(rintf(__fmul_rn(x, INV_TWO_PI)), TWO_PI));
-}
+constexpr int SWEEP_STAGES = 3;  // the ring's depth, to leave room for the buffers
+constexpr int BLOCK = 64 * 128;  // 64 rows x 64 bf16 in the 128-byte swizzle
+constexpr int WG_BUF = 4 * BLOCK;  // a warpgroup's 64 rows x 256
+// the ring, two warpgroup barriers, then (1024-aligned) the A buffers of both
+// warpgroups and their cos buffers
+constexpr size_t SWEEP_SMEM_BYTES = ring_bytes(SWEEP_STAGES) + 16 + 1024 + 4 * (size_t)WG_BUF;
 
-__device__ __forceinline__ float sin7(float x) {
-  const float r = reduce_range(x);
-  const float r2 = r * r;
-  return r * (S1 + r2 * (S3 + r2 * (S5 + r2 * S7)));
-}
+// A warp's 16 rows of a warpgroup buffer (64 rows x 256 bf16 as 4 blocks of
+// 64 rows x 64, each K-major in the 128-byte swizzle: 16-byte chunk c of row
+// r sits in block c / 8 at row r, chunk (c % 8) ^ (r % 8), which is also
+// the layout of a TMA box of 16 rows x 64 columns). The A buffer is both
+// the next product's A operand (wgmma reads it through a descriptor) and the
+// source of its scratch stores; stmatrix/ldmatrix and the cp.async loads (16
+// bytes a lane, a 512-byte row a warp instruction) are free of bank
+// conflicts.
+struct Staging {
+  uint32_t base;  // this warp's row 0
+  int lane;
+  __device__ __forceinline__ uint32_t at(int row, int chunk) const {
+    return base + (chunk >> 3) * BLOCK + row * 128 + (((chunk & 7) ^ (row & 7)) << 4);
+  }
+  // this lane's stmatrix/ldmatrix address for the x4 group of fragment
+  // registers 2j .. 2j+3: matrices (rows 0-7 | 8-15) x (chunk j | j+1)
+  __device__ __forceinline__ uint32_t frag(int j) const {
+    const int m = lane >> 3;
+    return at((lane & 7) + 8 * (m & 1), j + (m >> 1));
+  }
+};
 
-__device__ __forceinline__ float cos7(float x) {
-  const float r = reduce_range(x);
-  const float r2 = r * r;
-  return S1 + r2 * (C3 + r2 * (C5 + r2 * C7));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1,
+                                            uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
+// the warp's rows -> rows row .. row + 15 of the scratch that `map` reads:
+// four TMA bulk stores (16 rows x 64 columns each) issued by one lane, which
+// read the buffer while the next layer's products run
+__device__ __forceinline__ void store_rows(const Staging& st, const CUtensorMap* map, int row) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (st.lane == 0) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      asm volatile(
+          "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
+          :: "l"(reinterpret_cast<uint64_t>(map)), "r"(64 * s), "r"(row),
+             "r"(st.base + s * BLOCK)
+          : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Before the warp writes its rows of a buffer again: its stores have read
+// them (they have had a layer's products to do so).
+__device__ __forceinline__ void stores_read(const Staging& st) {
+  if (st.lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  __syncwarp();
 }
 
-size_t sweep_smem_bytes(int L) {
-  return sizeof(__nv_bfloat16) * (size_t)(T * PITCH + NSTAGE * KC * PITCH) +
-         sizeof(float) * (size_t)(L * H + DIN * H + H * COUT + T * DIN + T * COUT);
+// The warp's stores but the newest `keep` groups are done in device memory
+// and visible to its own loads.
+template <int KEEP>
+__device__ __forceinline__ void stores_done(const Staging& st) {
+  if (st.lane == 0) asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(KEEP) : "memory");
+  __syncwarp();
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-constexpr size_t WGRAD_SMEM_BYTES =
-    sizeof(__nv_bfloat16) * (size_t)(2 * NSTAGE * WKC * WPITCH);
+// rows 0..15 at src (pitch H) -> the warp's rows, asynchronously
+__device__ __forceinline__ void load_rows_async(const Staging& st, const __nv_bfloat16* src) {
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(st.at(r, st.lane)), "l"(src + r * H + st.lane * 8) : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The warpgroup's A buffer is written and visible to wgmma: each warp fences
+// its stmatrix writes to the async proxy and arrives; all wait.
+__device__ __forceinline__ void wg_sync(uint32_t bar, uint32_t& phase) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+  mbar_wait(bar, phase);
+  phase ^= 1u;
+}
+
+// The epilogue of a hidden forward layer: pre = acc + c_l; bf16(sin7(pre))
+// into the A buffer (the next layer's A operand) and bf16(cos7(pre)) into the
+// cos buffer, pair by pair; then both to row `row` of the scratch: cos (if
+// store_cos) to pmap's, h to hmap's.
+__device__ __forceinline__ void hidden_epilogue(const float (&acc)[ACC], const float* cl,
+                                                const Frag& f, const Staging& sa,
+                                                const Staging& sc, const CUtensorMap* pmap,
+                                                const CUtensorMap* hmap, int row,
+                                                bool store_cos) {
+  stores_read(sa);
+#pragma unroll
+  for (int j = 0; j < ACC / 4; j += 2) {
+    uint32_t hv[4], cv[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {  // fragment register 2j + m: D elements 4j + 2m, +1
+      const float2 cc = __ldg(reinterpret_cast<const float2*>(cl + f.col(j + (m >> 1))));
+      float s0, c0, s1, c1;
+      sincos7(acc[4 * j + 2 * m] + cc.x, s0, c0);
+      sincos7(acc[4 * j + 2 * m + 1] + cc.y, s1, c1);
+      hv[m] = pack_bf16(s0, s1);
+      cv[m] = pack_bf16(c0, c1);
+    }
+    stmatrix_x4(sa.frag(j), hv[0], hv[1], hv[2], hv[3]);
+    stmatrix_x4(sc.frag(j), cv[0], cv[1], cv[2], cv[3]);
+  }
+  if (store_cos) store_rows(sc, pmap, row);
+  store_rows(sa, hmap, row);
+}
 
 // pts (B, N, 3) f32; g (B, N, 4) f32; w0f (B, 3, H) bf16; c (B, L, H) f32;
-// wsf (B, L-1, H, H) bf16 as [k][n]; wsft its transpose per layer, [n][k];
-// wf (H, 4) bf16. Writes hbuf/pbuf (B, L, Np, H) bf16 (h_l; dpre_l),
-// xbuf/gbuf (B, Np, 16) bf16 and dx (B, N, 3) f32. Grid: (Np / T, B).
+// wf (H, 4) bf16. tmap reads Wsf^T and wmap Wsf, each as ((B (L-1) H) x H).
+// Writes hbuf/pbuf (B, L, Np, H) bf16 (h_l; dpre_l) through hmap/pmap (each
+// ((B L Np) x H) in boxes of 16 rows x 64 columns) and reads cos_l back from
+// pbuf; writes xg (B, Np, 64) bf16 and dx (B, N, 3) f32. Np = tiles x TILE.
 __global__ void __launch_bounds__(THREADS, 1)
-film_siren_bwd_sweep(const float* __restrict__ pts, const float* __restrict__ g,
-                     const __nv_bfloat16* __restrict__ w0f,
-                     const float* __restrict__ c,
-                     const __nv_bfloat16* __restrict__ wsf,
-                     const __nv_bfloat16* __restrict__ wsft,
+film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap hmap,
+                     const __grid_constant__ CUtensorMap pmap,
+                     const float* __restrict__ pts, const float* __restrict__ g,
+                     const __nv_bfloat16* __restrict__ w0f, const float* __restrict__ c,
                      const __nv_bfloat16* __restrict__ wf,
-                     __nv_bfloat16* __restrict__ hbuf, __nv_bfloat16* __restrict__ pbuf,
-                     __nv_bfloat16* __restrict__ xbuf, __nv_bfloat16* __restrict__ gbuf,
-                     float* __restrict__ dx, int N, int Np, int L) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sH = reinterpret_cast<__nv_bfloat16*>(smem);  // T x PITCH
-  __nv_bfloat16* sW = sH + T * PITCH;                           // NSTAGE x KC x PITCH
-  float* sC = reinterpret_cast<float*>(sW + NSTAGE * KC * PITCH);  // L x H
-  float* sW0 = sC + L * H;                                      // DIN x H
-  float* sWF = sW0 + DIN * H;                                   // H x COUT
-  float* sX = sWF + H * COUT;                                   // T x DIN
-  float* sG = sX + T * DIN;                                     // T x COUT
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * T;
-  const int valid = max(0, min(T, N - p0));
-  const int nf = (L - 1) * CHUNKS_PER_LAYER;  // forward chunks; as many backward
-  const int nchunks = 2 * nf;
-
-  // chunk q < nf: rows [q*KC, (q+1)*KC) of the stacked Wsf[b] (forward order);
-  // chunk nf + r: rows of Wsf[b, L-2 - r/8]^T (backward order)
-  auto chunk_src = [&](int q) -> const __nv_bfloat16* {
-    if (q < nf) return wsf + (size_t)b * (L - 1) * H * H + (size_t)q * KC * H;
-    const int r = q - nf;
-    const int layer = L - 2 - r / CHUNKS_PER_LAYER;
-    return wsft + ((size_t)b * (L - 1) + layer) * H * H +
-           (size_t)(r % CHUNKS_PER_LAYER) * KC * H;
-  };
-  auto load_chunk = [&](int q) {
-    const __nv_bfloat16* src = chunk_src(q);
-    __nv_bfloat16* dst = sW + (q % NSTAGE) * KC * PITCH;
-#pragma unroll
-    for (int i = 0; i < (KC * H / 8) / THREADS; ++i) {
-      const int s = tid + i * THREADS;
-      const int row = s / (H / 8);
-      const int col = (s % (H / 8)) * 8;
-      cp_async16(dst + row * PITCH + col, src + (size_t)row * H + col);
-    }
-  };
-
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    load_chunk(s);  // nchunks >= 16 > NSTAGE - 1
-    cp_async_commit();
-  }
-
-  for (int i = tid; i < L * H; i += THREADS) sC[i] = c[(size_t)b * L * H + i];
-  for (int i = tid; i < DIN * H; i += THREADS)
-    sW0[i] = __bfloat162float(w0f[(size_t)b * DIN * H + i]);
-  for (int i = tid; i < H * COUT; i += THREADS) sWF[i] = __bfloat162float(wf[i]);
-  for (int i = tid; i < T * DIN; i += THREADS) {
-    const float v = i < valid * DIN ? pts[((size_t)b * N + p0) * DIN + i] : 0.f;
-    sX[i] = __bfloat162float(__float2bfloat16(v));
-  }
-  for (int i = tid; i < T * COUT; i += THREADS) {
-    const float v = i < valid * COUT ? g[((size_t)b * N + p0) * COUT + i] : 0.f;
-    sG[i] = __bfloat162float(__float2bfloat16(v));
+                     const __nv_bfloat16* __restrict__ pbuf, __nv_bfloat16* __restrict__ xg,
+                     float* __restrict__ dx, int B, int N, int L, int tiles) {
+  extern __shared__ unsigned char smem[];
+  Ring<SWEEP_STAGES> ring = ring_setup<SWEEP_STAGES>(smem);
+  const uint32_t wg_bars = ring.turn + 16;  // one per consumer warpgroup
+  const uint32_t bufs = (wg_bars + 16 + 1023u) & ~1023u;
+  if (threadIdx.x == 0) {
+    mbar_init(wg_bars, 4);  // one arrive per warp of the warpgroup
+    mbar_init(wg_bars + 8, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  const int items = B * tiles;
+  const int Np = tiles * TILE;
+  const int layer_chunks = (L - 1) * CHUNKS_PER_LAYER;
 
-  // the bf16 points and cotangent for the weight-grad kernel, zero-padded to
-  // PADC columns (and zero on the ragged tail)
-  for (int i = tid; i < T * PADC; i += THREADS) {
-    const int p = i / PADC, j = i % PADC;
-    const size_t at = ((size_t)b * Np + p0 + p) * PADC + j;
-    xbuf[at] = __float2bfloat16(j < DIN ? sX[p * DIN + j] : 0.f);
-    gbuf[at] = __float2bfloat16(j < COUT ? sG[p * COUT + j] : 0.f);
-  }
-
-  // accumulator layout: warp (wm, wn) owns points wm*64.. and units wn*64..;
-  // element e of acc[mt][nt] is point frow(mt, e), unit fcol(nt) + (e & 1)
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
-  auto frow = [&](int mt, int e) { return wm * 64 + mt * 16 + (lane >> 2) + (e >> 1) * 8; };
-  auto fcol = [&](int nt) { return wn * 64 + nt * 8 + (lane & 3) * 2; };
-  auto slot = [&](__nv_bfloat16* buf, int layer, int p, int n) {
-    return reinterpret_cast<__nv_bfloat162*>(
-        buf + (((size_t)b * L + layer) * Np + p0 + p) * H + n);
-  };
-
-  // layer 0 on the FMA units (K = 3), in the accumulator layout
-#pragma unroll 1
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const int p = frow(mt, half * 2);
-      const float x0 = sX[p * DIN], x1 = sX[p * DIN + 1], x2 = sX[p * DIN + 2];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int n = fcol(nt);
-        const float v0 = x0 * sW0[n] + x1 * sW0[H + n] + x2 * sW0[2 * H + n] + sC[n];
-        const float v1 = x0 * sW0[n + 1] + x1 * sW0[H + n + 1] + x2 * sW0[2 * H + n + 1] +
-                         sC[n + 1];
-        const __nv_bfloat162 h = __floats2bfloat162_rn(sin7(v0), sin7(v1));
-        *reinterpret_cast<__nv_bfloat162*>(sH + p * PITCH + n) = h;
-        *slot(hbuf, 0, p, n) = h;
-        *slot(pbuf, 0, p, n) = __floats2bfloat162_rn(cos7(v0), cos7(v1));
+  if ((threadIdx.x >> 7) == PRODUCER_WG) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == PRODUCER_WG * 128) {
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int b = item / tiles;
+        for (int q = 0; q < layer_chunks; ++q)  // forward: Wsf[b, 0..L-2]^T
+          produce(ring, &tmap, (q % CHUNKS_PER_LAYER) * KC,
+                  (b * (L - 1) + q / CHUNKS_PER_LAYER) * H);
+        for (int q = 0; q < layer_chunks; ++q)  // backward: Wsf[b, L-2..0]
+          produce(ring, &wmap, (q % CHUNKS_PER_LAYER) * KC,
+                  (b * (L - 1) + L - 2 - q / CHUNKS_PER_LAYER) * H);
       }
     }
-  }
+  } else {
+    setmaxnreg_inc<240>();
+    const Frag f;
+    const uint32_t a_buf = bufs + f.wg * WG_BUF;  // this warpgroup's A operand
+    const uint32_t warp_rows = ((threadIdx.x >> 5) & 3) * 16 * 128;
+    const Staging sa{a_buf + warp_rows, (int)(threadIdx.x & 31)};
+    const Staging sc{bufs + (2 + f.wg) * WG_BUF + warp_rows, (int)(threadIdx.x & 31)};
+    const uint32_t wg_bar = wg_bars + 8u * f.wg;
+    uint32_t wg_phase = 0;
+    float acc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
 
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix row of this lane
-  const int lcol = (lane >> 4) * 8;                     // ldmatrix column offset
-  const uint32_t sH_base = smem_addr(sH);
-  const uint32_t sW_base = smem_addr(sW);
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int b = item / tiles;
+      const int pa = (item % tiles) * TILE + f.wg * WG_POINTS + f.row0;  // rows pa, pb
+      const int pb = pa + 8;
+      const int prow = pa - (f.row0 & 15);  // this warp's row 0
+      const float* cb = c + (size_t)b * L * H;
+      const __nv_bfloat16* w0b = w0f + (size_t)b * DIN * H;
+      // this warp's first row of a scratch layer
+      auto row_of = [&](int layer) { return (b * L + layer) * Np + prow; };
 
-  float acc[4][8][4];
+      float xa[DIN], xb[DIN];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+      for (int i = 0; i < DIN; ++i) {
+        xa[i] = pa < N ? bf16_round(pts[((size_t)b * N + pa) * DIN + i]) : 0.f;
+        xb[i] = pb < N ? bf16_round(pts[((size_t)b * N + pb) * DIN + i]) : 0.f;
+      }
+      {
+        // the xg rows of points pa and pb: lane q of the quad writes 32 bytes
+        // (16 columns) q of each; columns 0-2 are x, 3-6 g, the rest zeros
+        uint4 ra[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+        uint4 rb[2] = {ra[0], ra[1]};
+        if (f.q == 0) {
+          float ga[COUT], gb[COUT];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+          for (int o = 0; o < COUT; ++o) {
+            ga[o] = pa < N ? g[((size_t)b * N + pa) * COUT + o] : 0.f;
+            gb[o] = pb < N ? g[((size_t)b * N + pb) * COUT + o] : 0.f;
+          }
+          ra[0] = make_uint4(pack_bf16(xa[0], xa[1]), pack_bf16(xa[2], ga[0]),
+                             pack_bf16(ga[1], ga[2]), pack_bf16(ga[3], 0.f));
+          rb[0] = make_uint4(pack_bf16(xb[0], xb[1]), pack_bf16(xb[2], gb[0]),
+                             pack_bf16(gb[1], gb[2]), pack_bf16(gb[3], 0.f));
+        }
+        uint4* da = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pa) * XG_COLS) + 2 * f.q;
+        uint4* db = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pb) * XG_COLS) + 2 * f.q;
+        da[0] = ra[0];
+        da[1] = ra[1];
+        db[0] = rb[0];
+        db[1] = rb[1];
+      }
 
-#pragma unroll 1
-  for (int q = 0; q < nchunks; ++q) {
-    if (q == nf) {
-      // backward head on the FMA units: dpre_{L-1} = bf16(gb . Wf^T * cos_{L-1}),
-      // written over h_{L-1} in sH at this thread's own accumulator positions
-#pragma unroll 1
-      for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll 1
-        for (int half = 0; half < 2; ++half) {
-          const int p = frow(mt, half * 2);
-          const float4 gv = *reinterpret_cast<const float4*>(sG + p * COUT);
+      // layer 0 on the FMA units (x . W0f; the epilogue adds c_0)
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            const int n = fcol(nt);
-            const float4 wa = *reinterpret_cast<const float4*>(sWF + n * COUT);
-            const float4 wb = *reinterpret_cast<const float4*>(sWF + (n + 1) * COUT);
-            const float d0 = gv.x * wa.x + gv.y * wa.y + gv.z * wa.z + gv.w * wa.w;
-            const float d1 = gv.x * wb.x + gv.y * wb.y + gv.z * wb.z + gv.w * wb.w;
-            __nv_bfloat162* at = slot(pbuf, L - 1, p, n);
-            const float2 cv = __bfloat1622float2(*at);
-            const __nv_bfloat162 dp = __floats2bfloat162_rn(d0 * cv.x, d1 * cv.y);
-            *reinterpret_cast<__nv_bfloat162*>(sH + p * PITCH + n) = dp;
-            *at = dp;
+      for (int j = 0; j < ACC / 4; ++j) {
+        const int n = f.col(j);
+        const float2 w_0 = ldg_bf16x2(w0b + n);
+        const float2 w_1 = ldg_bf16x2(w0b + H + n);
+        const float2 w_2 = ldg_bf16x2(w0b + 2 * H + n);
+        acc[4 * j] = xa[0] * w_0.x + xa[1] * w_1.x + xa[2] * w_2.x;
+        acc[4 * j + 1] = xa[0] * w_0.y + xa[1] * w_1.y + xa[2] * w_2.y;
+        acc[4 * j + 2] = xb[0] * w_0.x + xb[1] * w_1.x + xb[2] * w_2.x;
+        acc[4 * j + 3] = xb[0] * w_0.y + xb[1] * w_1.y + xb[2] * w_2.y;
+      }
+      // each layer's epilogue, then the next layer's products: one copy of
+      // each in the code (unrolled, the kernel would be far larger than the
+      // instruction cache, and it runs at the rate its code is fetched). The
+      // last layer's cos7(pre) is not stored but kept in the cos buffer.
+#pragma unroll 1
+      for (int l = 0;; ++l) {
+        const bool last = l == L - 1;
+        hidden_epilogue(acc, cb + l * H, f, sa, sc, &pmap, &hmap, row_of(l), !last);
+        if (last) break;
+        wg_sync(wg_bar, wg_phase);
+        layer_mma_smem(ring, f.wg, acc, a_buf);
+      }
+
+      // dpre_{L-1} = bf16(gb . Wf^T * bf16(cos7(pre_{L-1}))) into the A buffer
+      // and stored
+      {
+        float ga[COUT], gb[COUT];  // gb = bf16(g) of rows pa, pb
+#pragma unroll
+        for (int o = 0; o < COUT; ++o) {
+          ga[o] = pa < N ? bf16_round(g[((size_t)b * N + pa) * COUT + o]) : 0.f;
+          gb[o] = pb < N ? bf16_round(g[((size_t)b * N + pb) * COUT + o]) : 0.f;
+        }
+        stores_read(sa);
+#pragma unroll
+        for (int j = 0; j < ACC / 4; j += 2) {
+          uint32_t cv[4], dv[4];
+          ldmatrix_x4(cv, sc.frag(j));
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {  // row pa for even m, pb for odd
+            // Wf rows n, n + 1: 8 bf16
+            const int n = f.col(j + (m >> 1));
+            const uint4 w = __ldg(reinterpret_cast<const uint4*>(wf + n * COUT));
+            const float2 w01 = unpack_bf16(w.x), w23 = unpack_bf16(w.y);
+            const float2 v01 = unpack_bf16(w.z), v23 = unpack_bf16(w.w);
+            const float g0 = (m & 1) ? gb[0] : ga[0], g1 = (m & 1) ? gb[1] : ga[1];
+            const float g2 = (m & 1) ? gb[2] : ga[2], g3 = (m & 1) ? gb[3] : ga[3];
+            const float d0 = g0 * w01.x + g1 * w01.y + g2 * w23.x + g3 * w23.y;
+            const float d1 = g0 * v01.x + g1 * v01.y + g2 * v23.x + g3 * v23.y;
+            const float2 cm = unpack_bf16(cv[m]);
+            dv[m] = pack_bf16(d0 * cm.x, d1 * cm.y);
+          }
+          stmatrix_x4(sa.frag(j), dv[0], dv[1], dv[2], dv[3]);
+        }
+        store_rows(sa, &pmap, row_of(L - 1));
+        wg_sync(wg_bar, wg_phase);
+      }
+      // the cos_l stores are done (all but h_{L-1} and dpre_{L-1}'s): read below
+      stores_done<2>(sa);
+
+      // backward layers: dpre_{l-1} = bf16(dpre_l . Wsf[b,l-1]^T * cos_{l-1});
+      // cos_{l-1} comes into the cos buffer while the products run
+#pragma unroll 1
+      for (int l = L - 1; l >= 1; --l) {
+        load_rows_async(sc, pbuf + (size_t)row_of(l - 1) * H);
+        layer_mma_smem(ring, f.wg, acc, a_buf);
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncwarp();
+        stores_read(sa);
+#pragma unroll
+        for (int j = 0; j < ACC / 4; j += 2) {
+          uint32_t cv[4], dv[4];
+          ldmatrix_x4(cv, sc.frag(j));
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const float2 cm = unpack_bf16(cv[m]);
+            dv[m] = pack_bf16(acc[4 * j + 2 * m] * cm.x, acc[4 * j + 2 * m + 1] * cm.y);
+          }
+          stmatrix_x4(sa.frag(j), dv[0], dv[1], dv[2], dv[3]);
+        }
+        store_rows(sa, &pmap, row_of(l - 1));
+        wg_sync(wg_bar, wg_phase);
+      }
+
+      // dX = dpre_0 . W0f^T on the FMA units, summed across the quad
+      float oa[DIN] = {0.f, 0.f, 0.f}, ob[DIN] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < ACC / 4; j += 2) {
+        uint32_t dv[4];
+        ldmatrix_x4(dv, sa.frag(j));
+#pragma unroll
+        for (int m = 0; m < 4; m += 2) {
+          const int n = f.col(j + (m >> 1));
+          const float2 da = unpack_bf16(dv[m]), db = unpack_bf16(dv[m + 1]);
+#pragma unroll
+          for (int i = 0; i < DIN; ++i) {
+            const float2 w = ldg_bf16x2(w0b + i * H + n);
+            oa[i] += da.x * w.x + da.y * w.y;
+            ob[i] += db.x * w.x + db.y * w.y;
           }
         }
       }
-    }
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // chunk q landed, sH is complete, stage (q-1) is free
-    if (q + NSTAGE - 1 < nchunks) load_chunk(q + NSTAGE - 1);
-    cp_async_commit();
-
-    const int kc = q % CHUNKS_PER_LAYER;
-    const uint32_t w_stage = sW_base + (uint32_t)((q % NSTAGE) * KC * PITCH * 2);
 #pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int row = wm * 64 + mt * 16 + lrow;
-        const int col = kc * KC + kk + lcol;
-        ldmatrix_x4(a[mt], sH_base + (uint32_t)((row * PITCH + col) * 2));
+      for (int i = 0; i < DIN; ++i) {
+        oa[i] = quad_sum(oa[i]);
+        ob[i] = quad_sum(ob[i]);
       }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bq[4];
-        const int krow = kk + lrow;
-        const int col = wn * 64 + np * 16 + lcol;
-        ldmatrix_x4_trans(bq, w_stage + (uint32_t)((krow * PITCH + col) * 2));
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], bq[0], bq[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], bq[2], bq[3]);
-        }
+      if (f.q == 0 && pa < N) {
+        float* o = dx + ((size_t)b * N + pa) * DIN;
+        o[0] = oa[0];
+        o[1] = oa[1];
+        o[2] = oa[2];
+      }
+      if (f.q == 1 && pb < N) {
+        float* o = dx + ((size_t)b * N + pb) * DIN;
+        o[0] = ob[0];
+        o[1] = ob[1];
+        o[2] = ob[2];
       }
     }
-
-    if (kc == CHUNKS_PER_LAYER - 1) {
-      __syncthreads();  // every warp has finished reading sH
-      const bool fwd = q < nf;
-      // forward: layer q/8 + 1 gives h (sH, hbuf) and cos (pbuf);
-      // backward: layer L-2 - (q-nf)/8 turns cos (pbuf) into dpre (sH, pbuf)
-      const int layer = fwd ? q / CHUNKS_PER_LAYER + 1 : L - 2 - (q - nf) / CHUNKS_PER_LAYER;
-      const float* cl = sC + layer * H;
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int n = fcol(nt);
-          float* d = acc[mt][nt];
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int p = frow(mt, half * 2);
-            const float v0 = d[half * 2], v1 = d[half * 2 + 1];
-            __nv_bfloat162* at = slot(pbuf, layer, p, n);
-            __nv_bfloat162 out;
-            if (fwd) {
-              const float pre0 = v0 + cl[n], pre1 = v1 + cl[n + 1];
-              out = __floats2bfloat162_rn(sin7(pre0), sin7(pre1));
-              *slot(hbuf, layer, p, n) = out;
-              *at = __floats2bfloat162_rn(cos7(pre0), cos7(pre1));
-            } else {
-              const float2 cv = __bfloat1622float2(*at);
-              out = __floats2bfloat162_rn(v0 * cv.x, v1 * cv.y);
-              *at = out;
-            }
-            *reinterpret_cast<__nv_bfloat162*>(sH + p * PITCH + n) = out;
-          }
-          d[0] = d[1] = d[2] = d[3] = 0.f;
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // dX = dpre_0 . W0f^T on the FMA units; two threads per point split K
-  {
-    const int p = tid >> 1;
-    const int part = tid & 1;
-    const __nv_bfloat162* row = reinterpret_cast<const __nv_bfloat162*>(sH + p * PITCH);
-    float o0 = 0.f, o1 = 0.f, o2 = 0.f;
-#pragma unroll 8
-    for (int j = part; j < H / 2; j += 2) {
-      const float2 v = __bfloat1622float2(row[j]);
-      const int k = 2 * j;
-      o0 += v.x * sW0[k] + v.y * sW0[k + 1];
-      o1 += v.x * sW0[H + k] + v.y * sW0[H + k + 1];
-      o2 += v.x * sW0[2 * H + k] + v.y * sW0[2 * H + k + 1];
-    }
-    o0 += __shfl_xor_sync(0xffffffffu, o0, 1);
-    o1 += __shfl_xor_sync(0xffffffffu, o1, 1);
-    o2 += __shfl_xor_sync(0xffffffffu, o2, 1);
-    if (part == 0 && p < valid) {
-      float* o = dx + ((size_t)b * N + p0 + p) * DIN;
-      o[0] = o0;
-      o[1] = o1;
-      o[2] = o2;
-    }
+    stores_done<0>(sa);  // no bulk store outlives the CTA's shared memory
   }
 }
 
-// One weight-grad product C = A^T B over the point axis (and the column sums
-// of B), for one batch element. A (Np, a_cols) and B (Np, b_cols) are bf16,
-// point-major; C rows < c_rows and columns < c_cols are written, row pitch ldc.
-struct WgradJob {
-  const __nv_bfloat16* a;
-  const __nv_bfloat16* bm;
-  float* out;
-  float* colsum;
-  int a_cols, b_cols, c_rows, c_cols, ldc;
-};
+// ---- the weight grads ----------------------------------------------------------
+
+constexpr int KP = 64;                        // points per chunk
+constexpr int BOX_BYTES = KP * 128;           // 64 columns x KP points of bf16: 8 KB
+constexpr int A_BOXES = 2;                    // A: 128 rows of the grad (2 x 64 columns)
+constexpr int B_BOXES = H / 64;               // B: 256 columns
+constexpr int WSTAGE_BYTES = (A_BOXES + B_BOXES) * BOX_BYTES;  // 48 KB
+constexpr int WSTAGES = 4;
+// the column sums' hand-over between warps: two buffers of 8 warps x 256 floats
+constexpr int RED_BYTES = 2 * 8 * H * 4;
+constexpr size_t WGRAD_SMEM_BYTES =
+    1024 + (size_t)WSTAGES * WSTAGE_BYTES + RED_BYTES + (2 * WSTAGES + 1) * 8;
 
 // The grads of all batch elements in one flat block of floats, in this order:
 // dws (B, L-1, H, H), dcs (B, L-1, H), dw0 (B, 3, H), dc0 (B, H),
@@ -415,9 +440,26 @@ __host__ __device__ inline size_t grads_size(int B, int L) {
   return (size_t)B * ((L - 1) * (H * H + H) + DIN * H + H + H * COUT + COUT);
 }
 
-__device__ WgradJob make_job(int job, int b, int B, int L, int Np,
-                             const __nv_bfloat16* hbuf, const __nv_bfloat16* pbuf,
-                             const __nv_bfloat16* xbuf, const __nv_bfloat16* gbuf,
+// One work item's product C = A^T B over a segment of points (both operands
+// point-major bf16, read through the tensor maps), and a column sum.
+struct WgradJob {
+  const CUtensorMap* amap;
+  const CUtensorMap* bmap;
+  int a_row0, b_row0;  // the batch element's (and layer's) first row in each map
+  int a_col0;          // first A column (the tile's first grad row)
+  int a_boxes;         // 2 (128 grad rows) or 1 (the 64 point/cotangent columns)
+  float* out;          // the grad block; C row r, column n at out[r * H + n] or,
+  bool transposed;     //   transposed, out[n * COUT + r - row0]
+  int row0, rows;      // C rows [row0, row0 + rows) of the tile are stored
+  float* colsum;       // sums of `cs_cols` columns from column cs_col0, or null
+  bool cs_from_a;      // of the A chunk (else of the B chunk)
+  int cs_col0, cs_cols;
+};
+
+// Work item t of a batch element (0 <= t < 2L): trunk grad l = t / 2, rows
+// 128 (t % 2) onwards, for t < 2(L-1); then dW0f and dWf.
+__device__ WgradJob make_job(int t, int b, int B, int L, int Np, const CUtensorMap* hmap,
+                             const CUtensorMap* pmap, const CUtensorMap* xmap,
                              float* grads) {
   float* dws = grads;
   float* dcs = dws + (size_t)B * (L - 1) * H * H;
@@ -425,164 +467,239 @@ __device__ WgradJob make_job(int job, int b, int B, int L, int Np,
   float* dc0 = dw0 + (size_t)B * DIN * H;
   float* dwf = dc0 + (size_t)B * H;
   float* dbf = dwf + (size_t)B * H * COUT;
-  auto layer = [&](const __nv_bfloat16* buf, int l) {
-    return buf + ((size_t)b * L + l) * Np * H;
-  };
   WgradJob j;
-  if (job < L - 1) {  // dWsf[b, job] = h_job^T dpre_{job+1}; dcs[b, job]
-    j.a = layer(hbuf, job);
-    j.bm = layer(pbuf, job + 1);
-    j.out = dws + ((size_t)b * (L - 1) + job) * H * H;
-    j.colsum = dcs + ((size_t)b * (L - 1) + job) * H;
-    j.a_cols = H; j.b_cols = H; j.c_rows = H; j.c_cols = H; j.ldc = H;
-  } else if (job == L - 1) {  // dW0f[b] = x^T dpre_0; dc0[b]
-    j.a = xbuf + (size_t)b * Np * PADC;
-    j.bm = layer(pbuf, 0);
+  j.transposed = false;
+  j.cs_from_a = false;
+  j.cs_col0 = 0;
+  j.cs_cols = H;
+  if (t < 2 * (L - 1)) {  // dWsf[b, l] = h_l^T dpre_{l+1}; dcs[b, l]
+    const int l = t >> 1, half = t & 1;
+    j.amap = hmap;
+    j.bmap = pmap;
+    j.a_row0 = (b * L + l) * Np;
+    j.b_row0 = (b * L + l + 1) * Np;
+    j.a_col0 = 128 * half;
+    j.a_boxes = 2;
+    j.out = dws + ((size_t)b * (L - 1) + l) * H * H;
+    j.row0 = 128 * half;
+    j.rows = 128;
+    j.colsum = half == 0 ? dcs + ((size_t)b * (L - 1) + l) * H : nullptr;
+  } else if (t == 2 * (L - 1)) {  // dW0f[b] = x^T dpre_0 (rows 0-2); dc0[b]
+    j.amap = xmap;
+    j.bmap = pmap;
+    j.a_row0 = b * Np;
+    j.b_row0 = b * L * Np;
+    j.a_col0 = 0;
+    j.a_boxes = 1;
     j.out = dw0 + (size_t)b * DIN * H;
+    j.row0 = 0;
+    j.rows = DIN;
     j.colsum = dc0 + (size_t)b * H;
-    j.a_cols = PADC; j.b_cols = H; j.c_rows = DIN; j.c_cols = H; j.ldc = H;
-  } else {  // dWf[b] = h_{L-1}^T gb; dbf[b]
-    j.a = layer(hbuf, L - 1);
-    j.bm = gbuf + (size_t)b * Np * PADC;
+  } else {  // dWf[b]^T = gb^T h_{L-1} (rows 3-6); dbf[b] = the sums of gb
+    j.amap = xmap;
+    j.bmap = hmap;
+    j.a_row0 = b * Np;
+    j.b_row0 = (b * L + L - 1) * Np;
+    j.a_col0 = 0;
+    j.a_boxes = 1;
     j.out = dwf + (size_t)b * H * COUT;
+    j.transposed = true;
+    j.row0 = XG_G;
+    j.rows = COUT;
     j.colsum = dbf + (size_t)b * COUT;
-    j.a_cols = H; j.b_cols = PADC; j.c_rows = H; j.c_cols = COUT; j.ldc = COUT;
+    j.cs_from_a = true;
+    j.cs_col0 = XG_G;
+    j.cs_cols = COUT;
   }
   return j;
 }
 
-// Grid: (4 tiles, L + 1 jobs, segments x B). Segment s covers points
-// [s * seg, min((s+1) * seg, Np)) and writes the partial grads block s of
-// `part`. 8 warps: warp (wm, wn) owns rows wm*64.. and columns wn*32.. of
-// the CTA's 128 x 128 tile.
-__global__ void __launch_bounds__(THREADS)
-film_siren_bwd_wgrad(const __nv_bfloat16* __restrict__ hbuf,
-                     const __nv_bfloat16* __restrict__ pbuf,
-                     const __nv_bfloat16* __restrict__ xbuf,
-                     const __nv_bfloat16* __restrict__ gbuf, float* part, int B, int Np,
-                     int L, int seg) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);  // NSTAGE x WKC x WPITCH
-  __nv_bfloat16* sB = sA + NSTAGE * WKC * WPITCH;              // NSTAGE x WKC x WPITCH
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr) : "memory");
+  return v;
+}
 
-  const int b = blockIdx.z % B;
-  const int segment = blockIdx.z / B;
-  const int p_begin = segment * seg;
-  const WgradJob job = make_job(blockIdx.y, b, B, L, Np, hbuf, pbuf, xbuf, gbuf,
-                                part + (size_t)segment * grads_size(B, L));
-  const int n_tiles = (job.b_cols + BT - 1) / BT;
-  const int m_tiles = (job.c_rows + BT - 1) / BT;
-  if ((int)blockIdx.x >= m_tiles * n_tiles) return;
-  const int m0 = (blockIdx.x / n_tiles) * BT;
-  const int n0 = (blockIdx.x % n_tiles) * BT;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // operand columns past a_cols / b_cols are never loaded: zero them once
-  for (int i = tid; i < 2 * NSTAGE * WKC * WPITCH / 2; i += THREADS)
-    reinterpret_cast<uint32_t*>(sA)[i] = 0u;
+// Items: (segment, batch element, t) with t fastest, so the two row tiles of
+// one trunk grad, which read the same B chunks, run side by side. Segment s
+// covers points [s * seg, min((s+1) * seg, Np)) and writes partial block s of
+// `part`. hmap/pmap read hbuf/pbuf as ((B L Np) x H), xmap xg as ((B Np) x 64),
+// all in boxes of 64 columns x KP points.
+__global__ void __launch_bounds__(THREADS, 1)
+film_siren_bwd_wgrad(const __grid_constant__ CUtensorMap hmap,
+                     const __grid_constant__ CUtensorMap pmap,
+                     const __grid_constant__ CUtensorMap xmap, float* part, int B, int Np,
+                     int L, int seg, int segments) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t stages = (smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t red = stages + WSTAGES * WSTAGE_BYTES;
+  const uint32_t full = red + RED_BYTES;
+  const uint32_t empty = full + 8u * WSTAGES;
+  const uint32_t red_bar = empty + 8u * WSTAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(full + 8u * s, 1);   // the producer's expect_tx arrive
+      mbar_init(empty + 8u * s, 8);  // one arrive per consumer warp
+    }
+    mbar_init(red_bar, 8);           // one arrive per consumer warp
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int a_vecs = min(BT, job.a_cols - m0) / 8;  // 16-byte vectors per row
-  const int b_vecs = min(BT, job.b_cols - n0) / 8;
-  auto load_chunk = [&](int q) {
-    const size_t p = (size_t)p_begin + (size_t)q * WKC;
-    __nv_bfloat16* da = sA + (q % NSTAGE) * WKC * WPITCH;
-    __nv_bfloat16* db = sB + (q % NSTAGE) * WKC * WPITCH;
-    for (int s = tid; s < WKC * (BT / 8); s += THREADS) {
-      const int row = s / (BT / 8), v = s % (BT / 8);
-      if (v < a_vecs)
-        cp_async16(da + row * WPITCH + v * 8, job.a + (p + row) * job.a_cols + m0 + v * 8);
-      if (v < b_vecs)
-        cp_async16(db + row * WPITCH + v * 8, job.bm + (p + row) * job.b_cols + n0 + v * 8);
+  const int per_b = 2 * L;
+  const int items = segments * B * per_b;
+  const size_t block = grads_size(B, L);
+  int stage = 0;
+  uint32_t phase = 0;
+  auto advance = [&]() {
+    if (++stage == WSTAGES) {
+      stage = 0;
+      phase ^= 1u;
     }
   };
 
-  const int nchunks = (min(Np, p_begin + seg) - p_begin) / WKC;
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < nchunks) load_chunk(s);
-    cp_async_commit();
-  }
-
-  const int wm = warp >> 2;  // rows wm*64 .. +64
-  const int wn = warp & 3;   // columns wn*32 .. +32
-  // A^T fragments from the point-major tile: 8x8 blocks at (k, m) offsets
-  // (0,0) (0,8) (8,0) (8,8) for lanes 0-7, 8-15, 16-23, 24-31, transposed
-  const int a_krow = (lane & 7) + ((lane >> 4) & 1) * 8;
-  const int a_mcol = ((lane >> 3) & 1) * 8;
-  const int b_krow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int b_ncol = (lane >> 4) * 8;
-  const bool do_colsum = m0 == 0 && tid < BT;
-  float colsum = 0.f, comp = 0.f;  // Kahan-compensated column sum
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-#pragma unroll 1
-  for (int q = 0; q < nchunks; ++q) {
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // chunk q landed, stage (q-1) is free
-    if (q + NSTAGE - 1 < nchunks) load_chunk(q + NSTAGE - 1);
-    cp_async_commit();
-
-    const __nv_bfloat16* tA = sA + (q % NSTAGE) * WKC * WPITCH;
-    const __nv_bfloat16* tB = sB + (q % NSTAGE) * WKC * WPITCH;
-    const uint32_t a_stage = smem_addr(tA);
-    const uint32_t b_stage = smem_addr(tB);
-#pragma unroll
-    for (int kk = 0; kk < WKC; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int krow = kk + a_krow;
-        const int col = wm * 64 + mt * 16 + a_mcol;
-        ldmatrix_x4_trans(a[mt], a_stage + (uint32_t)((krow * WPITCH + col) * 2));
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bq[4];
-        const int krow = kk + b_krow;
-        const int col = wn * 32 + np * 16 + b_ncol;
-        ldmatrix_x4_trans(bq, b_stage + (uint32_t)((krow * WPITCH + col) * 2));
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], bq[0], bq[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], bq[2], bq[3]);
+  if ((threadIdx.x >> 7) == PRODUCER_WG) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == PRODUCER_WG * 128) {
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int t = item % per_b, b = (item / per_b) % B, s = item / (per_b * B);
+        const WgradJob job = make_job(t, b, B, L, Np, &hmap, &pmap, &xmap, part);
+        const int p_end = min(Np, (s + 1) * seg);
+        for (int p = s * seg; p < p_end; p += KP) {
+          const uint32_t dst = stages + stage * WSTAGE_BYTES;
+          mbar_wait_or_trap(empty + 8u * stage, phase ^ 1u);
+          mbar_expect_tx(full + 8u * stage, (job.a_boxes + B_BOXES) * BOX_BYTES);
+          for (int i = 0; i < job.a_boxes; ++i)
+            tma_load_2d(dst + i * BOX_BYTES, job.amap, job.a_col0 + 64 * i, job.a_row0 + p,
+                        full + 8u * stage);
+          for (int i = 0; i < B_BOXES; ++i)
+            tma_load_2d(dst + (A_BOXES + i) * BOX_BYTES, job.bmap, 64 * i, job.b_row0 + p,
+                        full + 8u * stage);
+          advance();
         }
       }
     }
-    if (do_colsum) {
-#pragma unroll 8
-      for (int r = 0; r < WKC; ++r) {
-        const float y = __bfloat162float(tB[r * WPITCH + tid]) - comp;
-        const float t = colsum + y;
-        comp = (t - colsum) - y;
-        colsum = t;
+  } else {
+    setmaxnreg_inc<240>();
+    const Frag f;
+    // the column sums: a thread adds 16-byte groups cg (8 columns) of rows
+    // 8 rg .. 8 rg + 7 of each chunk, plainly within the chunk and
+    // Kahan-compensated across chunks; then the 8 warps' sums of a column are
+    // added in warp order through shared memory
+    const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
+    const bool lane0 = (threadIdx.x & 31) == 0;
+    uint32_t red_phase = 0;
+    float acc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int t = item % per_b, b = (item / per_b) % B, s = item / (per_b * B);
+      const WgradJob job = make_job(t, b, B, L, Np, &hmap, &pmap, &xmap,
+                                    part + (size_t)s * block);
+      const bool sums = job.colsum != nullptr;
+      const bool my_sums = sums && cg < (job.cs_from_a ? 1 : H / 8);
+      // the thread's 16-byte group of a chunk's row 8 rg
+      const uint32_t group = (job.cs_from_a ? 0 : (A_BOXES + (cg >> 3)) * BOX_BYTES) +
+                             rg * 8 * 128;
+      float sum[8], comp[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum[i] = comp[i] = 0.f;
+      const int p_end = min(Np, (s + 1) * seg);
+      bool first = true;
+      for (int p = s * seg; p < p_end; p += KP) {
+        const uint32_t chunk = stages + stage * WSTAGE_BYTES;
+        mbar_wait(full + 8u * stage, phase);
+        // both warpgroups issue their products; in a one-box job the second
+        // one's A box is stale and its rows are not stored
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KP / 16; ++kk)
+          wgmma_m64n256k16_ss<1>(
+              acc, sw128_mn_desc(chunk + f.wg * BOX_BYTES + kk * 2048, BOX_BYTES),
+              sw128_mn_desc(chunk + A_BOXES * BOX_BYTES + kk * 2048, BOX_BYTES),
+              (first && kk == 0) ? 0 : 1);
+        wgmma_commit();
+        if (my_sums) {
+          float part[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) part[i] = 0.f;
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const uint4 v = lds128(chunk + group + r * 128 + (((cg & 7) ^ r) << 4));
+            const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float2 x = unpack_bf16(w[i]);
+              part[2 * i] += x.x;
+              part[2 * i + 1] += x.y;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float y = part[i] - comp[i];
+            const float tt = sum[i] + y;
+            comp[i] = (tt - sum[i]) - y;
+            sum[i] = tt;
+          }
+        }
+        wgmma_wait<0>();
+        fence_acc(acc);
+        __syncwarp();
+        if (lane0) mbar_arrive(empty + 8u * stage);
+        advance();
+        first = false;
       }
-    }
-  }
-  cp_async_wait<0>();
 
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+      for (int j = 0; j < ACC / 4; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+        for (int e = 0; e < 4; e += 2) {
+          const int r = job.a_col0 + f.wg * 64 + f.row0 + 8 * (e >> 1);
+          const int n = f.col(j);
+          if (r < job.row0 || r >= job.row0 + job.rows) continue;
+          if (job.transposed) {
+            job.out[(size_t)n * COUT + r - job.row0] = acc[4 * j + e];
+            job.out[(size_t)(n + 1) * COUT + r - job.row0] = acc[4 * j + e + 1];
+          } else {
+            *reinterpret_cast<float2*>(job.out + (size_t)r * H + n) =
+                make_float2(acc[4 * j + e], acc[4 * j + e + 1]);
+          }
+        }
+      }
+      if (sums) {
+        const uint32_t buf = red + (red_phase & 1u) * (RED_BYTES / 2);
+        if (my_sums) {
+          float v[8];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 64 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int col = n0 + wn * 32 + nt * 8 + (lane & 3) * 2 + (e & 1);
-        if (row < job.c_rows && col < job.c_cols)
-          job.out[(size_t)row * job.ldc + col] = acc[mt][nt][e];
+          for (int i = 0; i < 8; ++i) v[i] = sum[i] - comp[i];
+          const uint32_t at = buf + (rg * H + 8 * cg) * 4;
+          asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                       :: "r"(at), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]) : "memory");
+          asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                       :: "r"(at + 16), "f"(v[4]), "f"(v[5]), "f"(v[6]), "f"(v[7]) : "memory");
+        }
+        __syncwarp();
+        if (lane0) mbar_arrive(red_bar);
+        mbar_wait(red_bar, red_phase & 1u);
+        ++red_phase;
+        const int c = threadIdx.x;  // column c's total, over the warps in order
+        if (c >= job.cs_col0 && c < job.cs_col0 + job.cs_cols) {
+          float total = 0.f;
+#pragma unroll
+          for (int w = 0; w < 8; ++w) {
+            float x;
+            asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(buf + (w * H + c) * 4)
+                         : "memory");
+            total += x;
+          }
+          job.colsum[c - job.cs_col0] = total;
+        }
       }
     }
   }
-  if (do_colsum && n0 + tid < job.c_cols) job.colsum[n0 + tid] = colsum;
 }
 
 // grads[i] = sum over segments s = 0, 1, .. of part[s][i], in that order.
@@ -601,48 +718,57 @@ __global__ void film_siren_bwd_reduce(const float* __restrict__ part,
 
 // Launches the kernels on `stream`; returns the first failing
 // cudaGetLastError() (0 = all launched). Scratch and outputs are allocated by
-// the caller: hbuf/pbuf (B, L, Np, H) bf16, xbuf/gbuf (B, Np, 16) bf16 with
-// Np = N rounded up to 128; dx (B, N, 3) f32; `grads` one block of
-// grads_size(B, L) floats (layout above); `part` segments x grads_size(B, L)
-// floats with segments = ceil(Np / seg), seg a multiple of 32 (with one
-// segment `part` may be `grads`).
+// the caller: hbuf/pbuf (B, L, Np, H) bf16, xg (B, Np, 64) bf16 with Np = N
+// rounded up to 128; dx (B, N, 3) f32; `grads` one block of grads_size(B, L)
+// floats (layout above); `part` segments x grads_size(B, L) floats with
+// segments = ceil(Np / seg), seg a multiple of 64 (with one segment `part`
+// may be `grads`). wsf is (B, L-1, H_in, H_out) bf16 and wsft its transpose
+// per layer.
 extern "C" int film_siren_bwd(const float* pts, const float* g, const void* w0f,
                               const float* c, const void* wsf, const void* wsft,
-                              const void* wf, void* hbuf, void* pbuf, void* xbuf,
-                              void* gbuf, float* dx, float* part, float* grads, int B,
-                              int N, int L, int seg, void* stream) {
-  if (B <= 0 || B > 65535 || N <= 0 || L < 2 || seg <= 0 || seg % WKC)
+                              const void* wf, void* hbuf, void* pbuf, void* xg, float* dx,
+                              float* part, float* grads, int B, int N, int L, int seg,
+                              void* stream) {
+  if (B <= 0 || N <= 0 || L < 2 || L > MAX_LAYERS || seg <= 0 || seg % KP)
     return (int)cudaErrorInvalidValue;
-  const int Np = (N + T - 1) / T * T;
-  const int segments = (Np + seg - 1) / seg;
-  if ((long long)segments * B > 65535) return (int)cudaErrorInvalidValue;
+  const int tiles = (N + TILE - 1) / TILE;
+  const long long Np = (long long)tiles * TILE;
+  const long long segments = (Np + seg - 1) / seg;
+  if ((long long)B * L * Np > 0x7fffffff || segments * B * 2 * L > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sweep_smem_bytes(L);
+  CUtensorMap tmap, wmap, hmap, pmap, xmap, hstore, pstore;
+  const uint64_t rows = (uint64_t)B * L * Np;
+  int e = weight_map(&tmap, wsft, (uint64_t)B * (L - 1) * H, H);
+  if (!e) e = weight_map(&wmap, wsf, (uint64_t)B * (L - 1) * H, H);
+  if (!e) e = tensor_map(&hstore, hbuf, rows, H, 16);
+  if (!e) e = tensor_map(&pstore, pbuf, rows, H, 16);
+  if (!e) e = tensor_map(&hmap, hbuf, rows, H, KP);
+  if (!e) e = tensor_map(&pmap, pbuf, rows, H, KP);
+  if (!e) e = tensor_map(&xmap, xg, (uint64_t)B * Np, XG_COLS, KP);
+  int grid = 0, wgrid = 0;
+  if (!e) e = persistent_grid(B * tiles, &grid);
+  if (!e) e = persistent_grid((int)(segments * B * 2 * L), &wgrid);
+  if (e) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      film_siren_bwd_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      film_siren_bwd_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SWEEP_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  film_siren_bwd_sweep<<<dim3((unsigned)(Np / T), (unsigned)B), THREADS, smem, s>>>(
-      pts, g, static_cast<const __nv_bfloat16*>(w0f), c,
-      static_cast<const __nv_bfloat16*>(wsf), static_cast<const __nv_bfloat16*>(wsft),
-      static_cast<const __nv_bfloat16*>(wf), static_cast<__nv_bfloat16*>(hbuf),
-      static_cast<__nv_bfloat16*>(pbuf), static_cast<__nv_bfloat16*>(xbuf),
-      static_cast<__nv_bfloat16*>(gbuf), dx, N, Np, L);
+  film_siren_bwd_sweep<<<grid, THREADS, SWEEP_SMEM_BYTES, s>>>(
+      tmap, wmap, hstore, pstore, pts, g, static_cast<const __nv_bfloat16*>(w0f), c,
+      static_cast<const __nv_bfloat16*>(wf), static_cast<const __nv_bfloat16*>(pbuf),
+      static_cast<__nv_bfloat16*>(xg), dx, B, N, L, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(film_siren_bwd_wgrad,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(film_siren_bwd_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)WGRAD_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  film_siren_bwd_wgrad<<<dim3(JOB_TILES, (unsigned)(L + 1), (unsigned)(segments * B)),
-                         THREADS, WGRAD_SMEM_BYTES, s>>>(
-      static_cast<const __nv_bfloat16*>(hbuf), static_cast<const __nv_bfloat16*>(pbuf),
-      static_cast<const __nv_bfloat16*>(xbuf), static_cast<const __nv_bfloat16*>(gbuf),
-      segments == 1 ? grads : part, B, Np, L, seg);
+  film_siren_bwd_wgrad<<<wgrid, THREADS, WGRAD_SMEM_BYTES, s>>>(
+      hmap, pmap, xmap, segments == 1 ? grads : part, B, (int)Np, L, seg, (int)segments);
   err = cudaGetLastError();
   if (err != cudaSuccess || segments == 1) return (int)err;
   const size_t size = grads_size(B, L);
   const size_t want = (size + 255) / 256;
   const unsigned blocks = (unsigned)(want < 132 * 8 ? want : 132 * 8);
-  film_siren_bwd_reduce<<<blocks, 256, 0, s>>>(part, grads, size, segments);
+  film_siren_bwd_reduce<<<blocks, 256, 0, s>>>(part, grads, size, (int)segments);
   return (int)cudaGetLastError();
 }

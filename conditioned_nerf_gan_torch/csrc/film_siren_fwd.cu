@@ -15,335 +15,210 @@
 // What bounds it: per point, (L-1) x 256 x 256 x 2 + small FLOP (0.4 MFLOP at
 // L = 4, 0.94 MFLOP at DIN = 32, L = 8) against 16 + 4 DIN bytes of device
 // I/O, so it is compute-bound: the tensor cores, and the sin7 epilogues
-// between the products. The plain torch version writes and reads the
-// (N, 256) activations in device memory for every layer (~1 KB per point
-// per layer in fp32).
+// between the products (about as long again on the FP32 pipes at L = 4).
+// Each 128-point tile also streams its batch element's folded weights
+// (393 KB at L = 4) from L2.
 //
-// What the design does about it: one CTA takes one batch element x T = 128
-// points and keeps that tile's activations in shared memory as bf16 for the
-// whole chain, so nothing but points in and 4 channels out touches device
-// memory per point.
-//   * layers 1..L-1 are 128 x 256 x 256 bf16 products on the tensor cores
-//     (mma.sync m16n8k16, fp32 accumulators). 8 warps tile the output
-//     2 (points) x 4 (units); each warp holds a 64 x 64 fp32 accumulator
-//     block in registers, so the whole layer output lives in registers and
-//     the epilogue can overwrite h in place (one h buffer, not two);
-//   * layer 0 at DIN = 3 (K = 3) runs on the FMA units. At DIN = 32 it is
-//     one more 32-row chunk of the same tensor-core loop: x is rounded to
-//     bf16 into the first 32 columns of the h buffer, W0f streams as the
-//     first chunk of the weight ring, and its epilogue writes h_0 over x.
-//     On the FMA units it would be 8,192 MACs per point, each reading two
-//     shared-memory operands; on the tensor cores it is two k-steps;
-//   * the 256 -> 4 head runs on the FMA units;
-//   * the folded weights stream from global/L2 through a 3-stage cp.async
-//     ring of 32-row K chunks; the stream runs across layer boundaries;
-//   * rows are padded to 264 bf16 so ldmatrix reads are bank-conflict free;
-//   * the ragged tail of N is zero-filled on load and masked on store.
-// wgmma, TMA and warp specialisation are left for later work.
+// What the design does about it: the trunk of film_siren_trunk.cuh (wgmma
+// with h in registers, a TMA weight ring under mbarriers, a producer
+// warpgroup and two consumer warpgroups taking turns, a persistent grid), so
+// the products run at wgmma's rate and one warpgroup's sin7 epilogue overlaps
+// the other's products. Around it:
+//   * layer 0 at DIN = 3 (K = 3) runs on the FMA units into the
+//     accumulators; at DIN = 32 it is two wgmma k-steps with x as register A
+//     fragments (loaded from device memory) and W0f^T as the first chunk of
+//     the ring (its columns past 32 read as zeros from the TMA, unused);
+//   * one loop then runs every layer's epilogue (sin7 of acc + c_l into the
+//     A registers) and the next layer's products: one copy of each in the
+//     code. Unrolled layer by layer the kernel ran slower: a kernel this
+//     large runs at the rate its code is fetched (see film_siren_bwd.cu);
+//   * the 256 -> 4 head runs on the FMA units on each thread's last h
+//     fragment, summed across the quad by shuffles;
+//   * the ragged tail of N is zero on load and masked on store.
+// The trunk weights come transposed, (B, L-1, H_out, H_in), the K-major
+// layout of wgmma's B operand.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "film_siren_trunk.cuh"
 
 namespace {
 
-constexpr int H = 256;        // hidden width
-constexpr int COUT = 4;       // rgb + sigma
-constexpr int T = 128;        // points per CTA
-constexpr int KC = 32;        // weight rows per pipeline chunk
-constexpr int NSTAGE = 3;     // cp.async ring depth
-constexpr int PITCH = H + 8;  // shared-memory row pitch in bf16
-constexpr int THREADS = 256;  // 8 warps: 2 along points x 4 along units
-constexpr int CHUNKS_PER_LAYER = H / KC;
-constexpr int MAX_LAYERS = 8;
+using namespace film_trunk;
 
-constexpr float TWO_PI = 6.28318530717958647692f;
-constexpr float INV_TWO_PI = 0.15915494309189533577f;
-constexpr float S1 = 9.9926289884e-01f;
-constexpr float S3 = -1.6565644419e-01f;
-constexpr float S5 = 7.9559223702e-03f;
-constexpr float S7 = -1.4495299408e-04f;
-
-// layer 0 on the FMA units (K = 3), or as W0_CHUNKS chunks of the ring
-template <int DIN>
-struct Layer0 {
-  static_assert(DIN == 3 || DIN % KC == 0, "DIN is 3 or a multiple of 32");
-  static constexpr bool kFma = DIN == 3;
-  static constexpr int kChunks = kFma ? 0 : DIN / KC;
-  // fp32 shared memory besides sC and sWF: sW0 (DIN x H) and sX (T x DIN)
-  static constexpr int kFmaFloats = kFma ? DIN * H + T * DIN : 0;
-};
-
-__device__ __forceinline__ float sin7(float x) {
-  // range reduction without FMA contraction, as the torch version computes it
-  const float r = __fsub_rn(x, __fmul_rn(rintf(__fmul_rn(x, INV_TWO_PI)), TWO_PI));
-  const float r2 = r * r;
-  return r * (S1 + r2 * (S3 + r2 * (S5 + r2 * S7)));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int DIN>
-size_t smem_bytes(int L) {
-  return sizeof(__nv_bfloat16) * (size_t)(T * PITCH + NSTAGE * KC * PITCH) +
-         sizeof(float) * (size_t)(L * H + H * COUT + Layer0<DIN>::kFmaFloats);
-}
-
-// pts (B, N, DIN) f32; w0f (B, DIN, H) bf16; c (B, L, H) f32 (c_0 then
-// c_1..); wsf (B, L-1, H, H) bf16 as [k][n]; wf (H, 4) bf16; bf (4) f32;
-// out (B, N, 4) f32. Grid: (ceil(N / T), B).
+// pts (B, N, DIN) f32; w0: at DIN 3 W0f (B, 3, H), at DIN 32 W0f^T (B, H, 32),
+// bf16; c (B, L, H) f32 (c_0 then c_1..); wf (H, 4) bf16; bf (4) f32; out
+// (B, N, 4) f32. wmap reads Wsf^T as ((B (L-1) H) x H); w0map W0f^T as
+// ((B H) x 32) (DIN 32 only). `tiles` = ceil(N / TILE).
 template <int DIN>
 __global__ void __launch_bounds__(THREADS, 1)
-film_siren_fwd_kernel(const float* __restrict__ pts,
-                      const __nv_bfloat16* __restrict__ w0f,
-                      const float* __restrict__ c,
-                      const __nv_bfloat16* __restrict__ wsf,
-                      const __nv_bfloat16* __restrict__ wf,
-                      const float* __restrict__ bf,
-                      float* __restrict__ out, int N, int L) {
-  using L0 = Layer0<DIN>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sH = reinterpret_cast<__nv_bfloat16*>(smem);  // T x PITCH
-  __nv_bfloat16* sW = sH + T * PITCH;                           // NSTAGE x KC x PITCH
-  float* sC = reinterpret_cast<float*>(sW + NSTAGE * KC * PITCH);  // L x H
-  float* sWF = sC + L * H;                                      // H x COUT
-  float* sW0 = sWF + H * COUT;                                  // DIN x H (FMA layer 0)
-  float* sX = sW0 + DIN * H;                                    // T x DIN (FMA layer 0)
+film_siren_fwd_kernel(const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap w0map,
+                      const float* __restrict__ pts, const __nv_bfloat16* __restrict__ w0,
+                      const float* __restrict__ c, const __nv_bfloat16* __restrict__ wf,
+                      const float* __restrict__ bf, float* __restrict__ out, int B, int N,
+                      int L, int tiles) {
+  static_assert(DIN == 3 || DIN == 32, "DIN is 3 or 32");
+  extern __shared__ unsigned char smem[];
+  Ring<NSTAGE> ring = ring_setup<NSTAGE>(smem);
+  const int items = B * tiles;
+  const int trunk_chunks = (L - 1) * CHUNKS_PER_LAYER;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * T;
-  const int valid = min(T, N - p0);
-  const __nv_bfloat16* w0b = w0f + (size_t)b * DIN * H;
-  const __nv_bfloat16* wb = wsf + (size_t)b * (L - 1) * H * H;
-  const int nchunks = L0::kChunks + (L - 1) * CHUNKS_PER_LAYER;
-
-  // chunk g: rows [g*KC, (g+1)*KC) of W0f's DIN rows (tensor-core layer 0)
-  // followed by the (L-1)*H stacked trunk weight rows
-  auto load_chunk = [&](int g) {
-    const __nv_bfloat16* src = g < L0::kChunks
-        ? w0b + (size_t)g * KC * H
-        : wb + (size_t)(g - L0::kChunks) * KC * H;
-    __nv_bfloat16* dst = sW + (g % NSTAGE) * KC * PITCH;
-#pragma unroll
-    for (int i = 0; i < (KC * H / 8) / THREADS; ++i) {
-      const int s = tid + i * THREADS;
-      const int row = s / (H / 8);
-      const int col = (s % (H / 8)) * 8;
-      cp_async16(dst + row * PITCH + col, src + (size_t)row * H + col);
-    }
-  };
-
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < nchunks) load_chunk(s);
-    cp_async_commit();
-  }
-
-  for (int i = tid; i < L * H; i += THREADS) sC[i] = c[(size_t)b * L * H + i];
-  for (int i = tid; i < H * COUT; i += THREADS) sWF[i] = __bfloat162float(wf[i]);
-  const float* xb = pts + ((size_t)b * N + p0) * DIN;
-  if constexpr (L0::kFma) {
-    for (int i = tid; i < DIN * H; i += THREADS) sW0[i] = __bfloat162float(w0b[i]);
-    for (int i = tid; i < T * DIN; i += THREADS) {
-      const float v = i < valid * DIN ? xb[i] : 0.f;
-      sX[i] = __bfloat162float(__float2bfloat16(v));
-    }
-    __syncthreads();
-
-    // layer 0 on the FMA units (K = 3)
-    for (int i = tid; i < T * H / 2; i += THREADS) {
-      const int p = i / (H / 2);
-      const int n = (i % (H / 2)) * 2;
-      const float x0 = sX[p * DIN], x1 = sX[p * DIN + 1], x2 = sX[p * DIN + 2];
-      const float v0 = x0 * sW0[n] + x1 * sW0[H + n] + x2 * sW0[2 * H + n] + sC[n];
-      const float v1 = x0 * sW0[n + 1] + x1 * sW0[H + n + 1] + x2 * sW0[2 * H + n + 1] +
-                       sC[n + 1];
-      *reinterpret_cast<__nv_bfloat162*>(sH + p * PITCH + n) =
-          __floats2bfloat162_rn(sin7(v0), sin7(v1));
+  if ((threadIdx.x >> 7) == PRODUCER_WG) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == PRODUCER_WG * 128) {
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int b = item / tiles;
+        if constexpr (DIN == 32) produce(ring, &w0map, 0, b * H);
+        for (int q = 0; q < trunk_chunks; ++q)
+          produce(ring, &wmap, (q % CHUNKS_PER_LAYER) * KC,
+                  (b * (L - 1) + q / CHUNKS_PER_LAYER) * H);
+      }
     }
   } else {
-    // x as bf16 into the first DIN columns of h: the A operand of layer 0
-    for (int i = tid; i < T * DIN / 2; i += THREADS) {
-      const int p = i / (DIN / 2);
-      const int k = (i % (DIN / 2)) * 2;
-      float2 v = make_float2(0.f, 0.f);
-      if (p < valid) v = make_float2(xb[p * DIN + k], xb[p * DIN + k + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(sH + p * PITCH + k) =
-          __floats2bfloat162_rn(v.x, v.y);
-    }
-  }
+    setmaxnreg_inc<240>();
+    const Frag f;
+    float acc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+    uint32_t h[HREGS];
 
-  // the chunked products on the tensor cores: layer 0 at DIN = 32, then
-  // layers 1..L-1
-  const int wm = warp >> 2;  // rows wm*64 .. +64
-  const int wn = warp & 3;   // units wn*64 .. +64
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix row of this lane
-  const int lcol = (lane >> 4) * 8;                     // ldmatrix column offset
-  const uint32_t sH_base = smem_addr(sH);
-  const uint32_t sW_base = smem_addr(sW);
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int b = item / tiles;
+      const int pa = (item % tiles) * TILE + f.wg * WG_POINTS + f.row0;  // rows pa, pb
+      const int pb = pa + 8;
+      const float* cb = c + (size_t)b * L * H;
 
-  float acc[4][8][4];
+      // the epilogue of a hidden layer: h = bf16(sin7(acc + c_l))
+      auto hidden = [&](const float* cl) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  for (int g = 0; g < nchunks; ++g) {
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // chunk g landed, h is complete, stage (g-1) is free
-    if (g + NSTAGE - 1 < nchunks) load_chunk(g + NSTAGE - 1);
-    cp_async_commit();
-
-    // layer of chunk g and the chunk's K offset within that layer
-    const bool first = g < L0::kChunks;
-    const int t = g - L0::kChunks;
-    const int layer = first ? 0 : 1 + t / CHUNKS_PER_LAYER;
-    const int kc = first ? g : t % CHUNKS_PER_LAYER;
-    const bool last = first ? g == L0::kChunks - 1 : kc == CHUNKS_PER_LAYER - 1;
-    const uint32_t w_stage = sW_base + (uint32_t)((g % NSTAGE) * KC * PITCH * 2);
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int row = wm * 64 + mt * 16 + lrow;
-        const int col = kc * KC + kk + lcol;
-        ldmatrix_x4(a[mt], sH_base + (uint32_t)((row * PITCH + col) * 2));
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bq[4];
-        const int krow = kk + lrow;
-        const int col = wn * 64 + np * 16 + lcol;
-        ldmatrix_x4_trans(bq, w_stage + (uint32_t)((krow * PITCH + col) * 2));
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], bq[0], bq[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], bq[2], bq[3]);
+        for (int j = 0; j < ACC / 4; ++j) {
+          const float2 cc = __ldg(reinterpret_cast<const float2*>(cl + f.col(j)));
+          h[2 * j] = pack_bf16(sin7(acc[4 * j] + cc.x), sin7(acc[4 * j + 1] + cc.y));
+          h[2 * j + 1] = pack_bf16(sin7(acc[4 * j + 2] + cc.x), sin7(acc[4 * j + 3] + cc.y));
         }
-      }
-    }
+      };
 
-    if (last) {
-      // layer done: h = bf16(sin7(acc + c_l)), written over the old h (or x)
-      const float* cl = sC + layer * H;
-      __syncthreads();  // every warp has finished reading the old h
+      if constexpr (DIN == 3) {
+        // layer 0 on the FMA units (x . W0f; the epilogue adds c_0)
+        float xa[3], xb[3];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r0 = wm * 64 + mt * 16 + (lane >> 2);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = wn * 64 + nt * 8 + (lane & 3) * 2;
-          const float c0 = cl[col], c1 = cl[col + 1];
-          float* d = acc[mt][nt];
-          *reinterpret_cast<__nv_bfloat162*>(sH + r0 * PITCH + col) =
-              __floats2bfloat162_rn(sin7(d[0] + c0), sin7(d[1] + c1));
-          *reinterpret_cast<__nv_bfloat162*>(sH + (r0 + 8) * PITCH + col) =
-              __floats2bfloat162_rn(sin7(d[2] + c0), sin7(d[3] + c1));
-          d[0] = d[1] = d[2] = d[3] = 0.f;
+        for (int i = 0; i < 3; ++i) {
+          xa[i] = pa < N ? bf16_round(pts[((size_t)b * N + pa) * 3 + i]) : 0.f;
+          xb[i] = pb < N ? bf16_round(pts[((size_t)b * N + pb) * 3 + i]) : 0.f;
         }
+        const __nv_bfloat16* w0b = w0 + (size_t)b * 3 * H;
+#pragma unroll
+        for (int j = 0; j < ACC / 4; ++j) {
+          const int n = f.col(j);
+          const float2 w_0 = ldg_bf16x2(w0b + n);
+          const float2 w_1 = ldg_bf16x2(w0b + H + n);
+          const float2 w_2 = ldg_bf16x2(w0b + 2 * H + n);
+          acc[4 * j] = xa[0] * w_0.x + xa[1] * w_1.x + xa[2] * w_2.x;
+          acc[4 * j + 1] = xa[0] * w_0.y + xa[1] * w_1.y + xa[2] * w_2.y;
+          acc[4 * j + 2] = xb[0] * w_0.x + xb[1] * w_1.x + xb[2] * w_2.x;
+          acc[4 * j + 3] = xb[0] * w_0.y + xb[1] * w_1.y + xb[2] * w_2.y;
+        }
+      } else {
+        // layer 0 as two k-steps: x as the A fragments of k 0..15 and 16..31
+        uint32_t xr[8];
+        const float* xa = pts + ((size_t)b * N + pa) * DIN;
+        const float* xb = pts + ((size_t)b * N + pb) * DIN;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int k = 16 * kk + 8 * half + 2 * f.q;
+            const float2 va = pa < N ? *reinterpret_cast<const float2*>(xa + k)
+                                     : make_float2(0.f, 0.f);
+            const float2 vb = pb < N ? *reinterpret_cast<const float2*>(xb + k)
+                                     : make_float2(0.f, 0.f);
+            xr[4 * kk + 2 * half] = pack_bf16(va.x, va.y);
+            xr[4 * kk + 2 * half + 1] = pack_bf16(vb.x, vb.y);
+          }
+        }
+        layer_mma<1, 2>(ring, f.wg, acc, xr);
       }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
 
-  // head on the FMA units: out = h . Wf + bf; two threads per point split K
-  {
-    const int p = tid >> 1;
-    const int half = tid & 1;
-    const __nv_bfloat162* hrow = reinterpret_cast<const __nv_bfloat162*>(sH + p * PITCH);
-    const float4* wf4 = reinterpret_cast<const float4*>(sWF);
-    float o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
-#pragma unroll 8
-    for (int j = half; j < H / 2; j += 2) {
-      const float2 hv = __bfloat1622float2(hrow[j]);
-      const float4 wa = wf4[2 * j];
-      const float4 wc = wf4[2 * j + 1];
-      o0 += hv.x * wa.x + hv.y * wc.x;
-      o1 += hv.x * wa.y + hv.y * wc.y;
-      o2 += hv.x * wa.z + hv.y * wc.z;
-      o3 += hv.x * wa.w + hv.y * wc.w;
-    }
-    o0 += __shfl_xor_sync(0xffffffffu, o0, 1);
-    o1 += __shfl_xor_sync(0xffffffffu, o1, 1);
-    o2 += __shfl_xor_sync(0xffffffffu, o2, 1);
-    o3 += __shfl_xor_sync(0xffffffffu, o3, 1);
-    if (half == 0 && p < valid) {
-      *reinterpret_cast<float4*>(out + ((size_t)b * N + p0 + p) * COUT) =
-          make_float4(o0 + bf[0], o1 + bf[1], o2 + bf[2], o3 + bf[3]);
+      // each layer's epilogue, then the next layer's products: one copy of
+      // each in the code (unrolled, a kernel larger than the instruction
+      // cache runs at the rate its code is fetched)
+#pragma unroll 1
+      for (int l = 0;; ++l) {
+        hidden(cb + l * H);
+        if (l == L - 1) break;
+        layer_mma<CHUNKS_PER_LAYER, CHUNKS_PER_LAYER>(ring, f.wg, acc, h);
+      }
+
+      // head on the FMA units: out = h_{L-1} . Wf + bf (h already in bf16)
+      float oa[COUT] = {0.f, 0.f, 0.f, 0.f}, ob[COUT] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < ACC / 4; ++j) {
+        const int n = f.col(j);
+        const float2 ha = unpack_bf16(h[2 * j]), hb = unpack_bf16(h[2 * j + 1]);
+        const float ha0 = ha.x, ha1 = ha.y, hb0 = hb.x, hb1 = hb.y;
+        const float2 w01 = ldg_bf16x2(wf + n * COUT), w23 = ldg_bf16x2(wf + n * COUT + 2);
+        const float2 v01 = ldg_bf16x2(wf + (n + 1) * COUT);
+        const float2 v23 = ldg_bf16x2(wf + (n + 1) * COUT + 2);
+        oa[0] += ha0 * w01.x + ha1 * v01.x;
+        oa[1] += ha0 * w01.y + ha1 * v01.y;
+        oa[2] += ha0 * w23.x + ha1 * v23.x;
+        oa[3] += ha0 * w23.y + ha1 * v23.y;
+        ob[0] += hb0 * w01.x + hb1 * v01.x;
+        ob[1] += hb0 * w01.y + hb1 * v01.y;
+        ob[2] += hb0 * w23.x + hb1 * v23.x;
+        ob[3] += hb0 * w23.y + hb1 * v23.y;
+      }
+#pragma unroll
+      for (int o = 0; o < COUT; ++o) {
+        oa[o] = quad_sum(oa[o]) + bf[o];
+        ob[o] = quad_sum(ob[o]) + bf[o];
+      }
+      if (f.q == 0 && pa < N)
+        *reinterpret_cast<float4*>(out + ((size_t)b * N + pa) * COUT) =
+            make_float4(oa[0], oa[1], oa[2], oa[3]);
+      if (f.q == 1 && pb < N)
+        *reinterpret_cast<float4*>(out + ((size_t)b * N + pb) * COUT) =
+            make_float4(ob[0], ob[1], ob[2], ob[3]);
     }
   }
 }
 
 template <int DIN>
-int launch(const float* pts, const void* w0f, const float* c, const void* wsf,
-           const void* wf, const float* bf, float* out, int B, int N, int L,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes<DIN>(L);
-  cudaError_t err = cudaFuncSetAttribute(
-      film_siren_fwd_kernel<DIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((N + T - 1) / T), (unsigned)B);
-  film_siren_fwd_kernel<DIN><<<grid, THREADS, smem, stream>>>(
-      pts, static_cast<const __nv_bfloat16*>(w0f), c,
-      static_cast<const __nv_bfloat16*>(wsf), static_cast<const __nv_bfloat16*>(wf),
-      bf, out, N, L);
+int launch(const float* pts, const void* w0, const float* c, const void* wst, const void* wf,
+           const float* bf, float* out, int B, int N, int L, cudaStream_t stream) {
+  CUtensorMap wmap, w0map;
+  int err = weight_map(&wmap, wst, (uint64_t)B * (L - 1) * H, H);
+  if (err) return err;
+  // at DIN 3 the ring has no layer-0 chunk: w0map is a copy never read
+  err = DIN == 32 ? weight_map(&w0map, w0, (uint64_t)B * H, DIN) : 0;
+  if (err) return err;
+  if (DIN != 32) w0map = wmap;
+  const int tiles = (N + TILE - 1) / TILE;
+  int grid = 0;
+  err = persistent_grid(B * tiles, &grid);
+  if (err) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      film_siren_fwd_kernel<DIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ring_bytes(NSTAGE));
+  if (cerr != cudaSuccess) return (int)cerr;
+  film_siren_fwd_kernel<DIN><<<grid, THREADS, ring_bytes(NSTAGE), stream>>>(
+      wmap, w0map, pts, static_cast<const __nv_bfloat16*>(w0), c,
+      static_cast<const __nv_bfloat16*>(wf), bf, out, B, N, L, tiles);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the DIN = din instance (3 or 32) on `stream`; returns
-// cudaGetLastError() (0 = launched).
-extern "C" int film_siren_fwd(const float* pts, const void* w0f, const float* c,
-                              const void* wsf, const void* wf, const float* bf,
-                              float* out, int B, int N, int L, int din, void* stream) {
-  if (B <= 0 || B > 65535 || N <= 0 || L < 2 || L > MAX_LAYERS)
+// cudaGetLastError() (0 = launched). wst is Wsf transposed per layer,
+// (B, L-1, H_out, H_in) bf16; w0 is W0f (B, 3, H) at din 3 and W0f^T
+// (B, H, 32) at din 32.
+extern "C" int film_siren_fwd(const float* pts, const void* w0, const float* c,
+                              const void* wst, const void* wf, const float* bf, float* out,
+                              int B, int N, int L, int din, void* stream) {
+  if (B <= 0 || N <= 0 || L < 2 || L > MAX_LAYERS || (long long)B * ((N + TILE - 1) / TILE) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (din == 3) return launch<3>(pts, w0f, c, wsf, wf, bf, out, B, N, L, s);
-  if (din == 32) return launch<32>(pts, w0f, c, wsf, wf, bf, out, B, N, L, s);
+  if (din == 3) return launch<3>(pts, w0, c, wst, wf, bf, out, B, N, L, s);
+  if (din == 32) return launch<32>(pts, w0, c, wst, wf, bf, out, B, N, L, s);
   return (int)cudaErrorInvalidValue;
 }

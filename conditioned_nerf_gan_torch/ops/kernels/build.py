@@ -1,11 +1,13 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
-for Hopper (`sm_90a`) into `_build/<name>-<source hash>.so`, beside the
-package in a directory that .gitignore lists. The hash in the file name means
-an edited source is never served by a stale library. Nothing here runs at
-import time: the CPU tests import every module, and this host may have no
-`nvcc`.
+for Hopper (`sm_90a`) into `_build/<name>-<hash>.so`, beside the package in
+a directory that .gitignore lists. The hash covers the source, every shared
+header `csrc/*.cuh` and the flags, so an edited source or header is never
+served by a stale library. The TMA kernels reach the tensor-map encoder, a
+libcuda function, through the runtime (`cudaGetDriverEntryPoint`), so no
+flag links libcuda. Nothing here runs at import time: the CPU tests import
+every module, and the host may have no `nvcc`.
 """
 
 from __future__ import annotations
@@ -52,8 +54,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of `csrc/<name>.cu`, named by the hash of the source, the
+    headers beside it and the flags; reads files only."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -62,8 +68,10 @@ def load_libraries(*names: str) -> list[KernelLibrary]:
     together; then load them all."""
     started = {}
     for name in names:
+        if name in _LOADED:  # the hash reads every source: once per process
+            continue
         out = _library_path(name)
-        if name in _LOADED or out.exists():
+        if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

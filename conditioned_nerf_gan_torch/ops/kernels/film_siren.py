@@ -57,11 +57,13 @@ KERNEL_INS = (3, 32)
 KERNEL_LAYERS = (2, 8)
 KERNEL_OUT = 4
 # csrc/film_siren_bwd.cu: points per sweep tile (the scratch is padded to a
-# multiple of it), the column padding of its point/cotangent scratch, and
-# the fewest points per weight-grad segment
+# multiple of it), the columns of its point/cotangent scratch (one 128-byte
+# row a point), the fewest points per weight-grad segment, and the weight-grad
+# work items to aim for (about three per SM of an H100)
 BWD_TILE = 128
-BWD_PAD_COLS = 16
+BWD_XG_COLS = 64
 BWD_SEGMENT = 4096
+BWD_ITEMS = 396
 
 
 def sin7(x: torch.Tensor) -> torch.Tensor:
@@ -280,13 +282,18 @@ def _forward_kernel(points, freq, phase, w0, b0, ws, bs, wf, bf):
     """Launch K1 on checked inputs -> (B, N, 4) fp32."""
     fn = _c_function("film_siren_fwd", "film_siren_fwd", 7, 4)
     w0f, c, wsf = _fold_for_kernel(freq, phase, w0, b0, ws, bs)
+    B, N, din = points.shape
+    # wgmma's B operand is K-major: the trunk weights, and at Din 32 the
+    # first layer's, go in transposed (B, .., H_out, H_in)
+    wsf_t = wsf.transpose(-1, -2).contiguous()
+    if din != KERNEL_IN:
+        w0f = w0f.transpose(-1, -2).contiguous()
     wf16 = wf.to(torch.bfloat16).contiguous()
     bf = bf.contiguous()
-    B, N, din = points.shape
     out = torch.empty(B, N, KERNEL_OUT, dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):  # launch on the tensors' card
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = fn(points.data_ptr(), w0f.data_ptr(), c.data_ptr(), wsf.data_ptr(),
+        err = fn(points.data_ptr(), w0f.data_ptr(), c.data_ptr(), wsf_t.data_ptr(),
                  wf16.data_ptr(), bf.data_ptr(), out.data_ptr(), B, N, c.shape[1],
                  din, stream)
     if err != 0:
@@ -363,26 +370,26 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
     if tuple(g.shape) != (B, N, KERNEL_OUT):
         raise ValueError(f"film_siren_mlp_bwd: g has shape {tuple(g.shape)}, "
                          f"the kernel takes {(B, N, KERNEL_OUT)}")
-    fn = _c_function("film_siren_bwd", "film_siren_bwd", 14, 4)
+    fn = _c_function("film_siren_bwd", "film_siren_bwd", 13, 4)
     w0f, c, wsf = _fold_for_kernel(freq, phase, w0, b0, ws, bs)
-    wsf_t = wsf.transpose(-1, -2).contiguous()  # the backward sweep reads W^T
+    wsf_t = wsf.transpose(-1, -2).contiguous()  # the recompute's K-major weights
     wf16 = wf.to(torch.bfloat16).contiguous()
     g = g.contiguous()
     L = c.shape[1]
     H, C = KERNEL_HIDDEN, KERNEL_OUT
     n_pad = -(-N // BWD_TILE) * BWD_TILE
-    # weight-grad segments: >= BWD_SEGMENT points each, <= 65535 launch rows
-    n_seg = min(-(-n_pad // BWD_SEGMENT), 65535 // B)
+    # weight-grad segments: >= BWD_SEGMENT points each, and enough of them
+    # for BWD_ITEMS work items (2L per batch element and segment)
+    n_seg = min(-(-n_pad // BWD_SEGMENT), -(-BWD_ITEMS // (2 * L * B)))
     seg = -(-n_pad // (n_seg * BWD_TILE)) * BWD_TILE
     n_seg = -(-n_pad // seg)
     dev = points.device
     bf16 = dict(dtype=torch.bfloat16, device=dev)
     # scratch: bf16 h_l and dpre_l for every (padded) point, and the
-    # bf16-rounded points and cotangent padded to 16 columns
+    # bf16-rounded points and cotangent in one zero-padded row a point
     hbuf = torch.empty(B, L, n_pad, H, **bf16)
     pbuf = torch.empty(B, L, n_pad, H, **bf16)
-    xbuf = torch.empty(B, n_pad, BWD_PAD_COLS, **bf16)
-    gbuf = torch.empty(B, n_pad, BWD_PAD_COLS, **bf16)
+    xg = torch.empty(B, n_pad, BWD_XG_COLS, **bf16)
     dpoints = torch.empty(B, N, KERNEL_IN, dtype=torch.float32, device=dev)
     # the folded grads of every batch element in one block, in the kernel's
     # order; with several segments, one partial block per segment
@@ -392,8 +399,7 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     part = (grads if n_seg == 1 else
             torch.empty(n_seg, sum(sizes), dtype=torch.float32, device=dev))
-    ptrs = (points, g, w0f, c, wsf, wsf_t, wf16, hbuf, pbuf, xbuf, gbuf, dpoints,
-            part, grads)
+    ptrs = (points, g, w0f, c, wsf, wsf_t, wf16, hbuf, pbuf, xg, dpoints, part, grads)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in ptrs), B, N, L, seg, stream)

@@ -203,6 +203,90 @@ def test_bwd_kernel_refuses_din32(voxel_inputs):
         tfs.film_siren_mlp_bwd(*voxel_inputs, g)
 
 
+def edge_inputs(B, N, din, seed):
+    """K1/K2 inputs at freq/30 (no rounding flip grows, so a masking or
+    layout fault is O(0.1-1)), drawn as the `kernel_inputs` fixture draws
+    them at Din 3 (L 4) and as `voxel_inputs` does at Din 32 (L 8), with a
+    cotangent."""
+    rng = np.random.default_rng(seed)
+    H = tfs.KERNEL_HIDDEN
+    if din == 3:
+        L = 4
+        arrays = (
+            rng.uniform(-0.3, 0.3, (B, N, 3)),
+            rng.uniform(25, 45, (B, L * H)) / 30,
+            rng.uniform(-1, 1, (B, L * H)),
+            rng.normal(0, 0.5, (3, H)),
+            rng.normal(0, 0.1, (H,)),
+            rng.normal(0, 1.0, (L - 1, H, H)) * np.sqrt(6 / H) / 30,
+            rng.normal(0, 0.1, (L - 1, H)),
+            rng.normal(0, 0.1, (H, 4)),
+            rng.normal(0, 0.1, (4,)),
+        )
+    else:
+        L, trunk = 8, np.sqrt(6 / H) / 25
+        arrays = (
+            rng.uniform(-1, 1, (B, N, din)),
+            rng.uniform(25, 45, (B, L * H)) / 30,
+            rng.uniform(-1, 1, (B, L * H)),
+            rng.uniform(-1 / din, 1 / din, (din, H)),
+            rng.uniform(-0.2, 0.2, (H,)),
+            rng.uniform(-trunk, trunk, (L - 1, H, H)),
+            rng.uniform(-1 / 16, 1 / 16, (L - 1, H)),
+            rng.uniform(-trunk, trunk, (H, 4)),
+            rng.uniform(-1 / 16, 1 / 16, (4,)),
+        )
+    g = rng.normal(0, 1, (B, N, 4))
+    return ([torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays],
+            torch.from_numpy(g.astype(np.float32)).cuda())
+
+
+# the edges of the 64-point warpgroup tile and the 128-point CTA tile; B 3
+# makes the persistent loop cross batch elements within a CTA
+EDGE_N = (1, 63, 64, 65, 127, 129, 1000)
+EDGE_B = (1, 3)
+
+
+@pytest.mark.parametrize("din", tfs.KERNEL_INS)
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("N", EDGE_N)
+def test_kernel_at_tile_edges(din, B, N):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, _ = edge_inputs(B, N, din, seed=N + B)
+    before = tfs.film_siren_mlp.launches
+    with torch.no_grad():
+        out = tfs.film_siren_mlp(*args)
+        plain = tfs.film_siren_mlp_folded(*args)
+    torch.cuda.synchronize()
+    assert tfs.film_siren_mlp.launches == before + 1
+    assert out.shape == (B, N, 4) and torch.isfinite(out).all()
+    # freq/30 maxima seen at N 1000: 8.9e-4 (Din 3), 2.2e-5 (Din 32)
+    assert (out - plain).abs().max().item() < (2e-3 if din == 3 else 1e-4)
+
+
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("N", EDGE_N)
+def test_bwd_kernel_at_tile_edges(B, N):
+    """K2 against the plain VJP at freq/30, and two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, g = edge_inputs(B, N, 3, seed=N + B)
+    before = tfs.film_siren_mlp_bwd.launches
+    out = tfs.film_siren_mlp_bwd(*args, g)
+    again = tfs.film_siren_mlp_bwd(*args, g)
+    plain = tfs.film_siren_mlp_folded_vjp(*args, g)
+    torch.cuda.synchronize()
+    assert tfs.film_siren_mlp_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    for k, p in zip(out, plain):
+        assert k.shape == p.shape and torch.isfinite(k).all()
+        # as test_bwd_kernel_matches_plain_vjp at freq/30
+        assert ((k - p).norm() / p.norm()).item() < 2e-3
+
+
 @pytest.fixture
 def volume_coords():
     if not torch.cuda.is_available():
