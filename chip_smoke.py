@@ -12,7 +12,8 @@ Refuses to run without CUDA (exit 1). Otherwise:
      launches run), at the serving ray chunk and at a ragged N, and times
      both with CUDA events, each time beside its bound and kernel / bound;
  1b. the same at the voxel family's shape (Din 32, 8 layers) at 2 x 786,432,
-     at the `dg` serving ray chunk (2 x 49,152) and a ragged 2 x 1,000;
+     at the `dg` training chunk (12 x 49,152), at its serving ray chunk
+     (2 x 49,152) and a ragged 2 x 1,000;
   2. drives the port's serving path: the thesis model (`thousand` preset +
      special.py: PointNet 512/512, SHORTSIREN z 512, 4 x 256) with seeded
      random weights is saved as a port checkpoint, loaded by `Inferencer`,
@@ -29,6 +30,10 @@ Refuses to run without CUDA (exit 1). Otherwise:
      ragged N: norm-relative error, a low-frequency max, distance to fp64
      sums against the plain version's, bitwise-equal repeats; and times both,
      beside the bound;
+ 4b. the same at the voxel family's shape (Din 32, 8 layers: TALLSIREN_FG's
+     init) at the `dg` training chunk 12 x 49,152, at stage 0's 12 x 12,288
+     and a ragged 2 x 1,000, with dpoints (the sampled features' cotangent)
+     held like every other grad;
   5. drives the port's training path: the thesis model at stage 2 (step
      16000, fade-in alpha 0.5) at full width, the discriminator with R1,
      batch 12 at 128^2, 48 + 48 samples, ray_chunks 16, through
@@ -38,9 +43,15 @@ Refuses to run without CUDA (exit 1). Otherwise:
      plain versions in both kernels' places, and one profiled step;
   6. holds the trilinear-sampling kernel against its plain torch version
      (`border_trilerp_reference`, the same fp32 lerps) on a 2 x 64^3 x 32
-     feature volume at 2 x 786,432 points, at a ragged 2 x 1,000 and on
-     points outside the cube and on its faces, and times both (with
-     `F.grid_sample` beside them as a yardstick);
+     feature volume at 2 x 786,432 points, at a ragged 2 x 1,000, on points
+     outside the cube and on its faces and at the `dg` serving ray chunk
+     (2 x 49,152 ray samples), and on a 12 x 64^3 x 32 volume at the
+     training ray chunk (12 x 49,152); times it beside the plain version
+     and `F.grid_sample`; and holds the trilinear backward kernel
+     at the same sets: dcoords against `border_trilerp_vjp_reference`, dV
+     against an fp64 scatter of the same contributions (and no farther from
+     it than the plain `index_add_` is), timed beside the plain version, the
+     bound and `grid_sampler_3d_backward`;
   7. drives the voxel-conditioned serving path: the `dg` preset (UNet3D
      4 -> 32, f_maps 32, 4 levels; TALLSIREN_FG, 8 x 256 on 32 sampled
      features) at step 30000 with seeded random weights, saved as a port
@@ -58,14 +69,24 @@ Refuses to run without CUDA (exit 1). Otherwise:
      T 128, prints K1's phase-1 time at 2 x 786,432 beside K4 v4 `sin7`'s
      (K1's function in its earlier mma.sync design, the same run), then runs the
      study tool's variants (the default set, the tile sweeps, the other
-     modes and K1 + K2's VJP) through `run_study`, counting launches.
+     modes and K1 + K2's VJP) through `run_study`, counting launches;
+  9. drives the voxel family's training path: the `dg` preset at stage 2
+     (step 16000) at full width (UNet3D 4 -> 32, f_maps 32, 4 levels on 12
+     voxel grids of 64^3; TALLSIREN_FG 8 x 256 on 32 sampled features; no
+     discriminator), batch 12 at 128^2, 48 + 48 samples, ray_chunks 16,
+     through `make_train_step`: one warm-up and three timed steps (s/step,
+     peak memory, launches of K1, K2 and both trilinear kernels per step
+     against the design's count), finite losses, G and E moved (the U-Net's
+     grads come back through the trilinear backward), one step against the
+     same step with the plain versions in every kernel's place, and one
+     profiled step.
 Prints one JSON line of kernel results (each kernel's time beside its plain
 version's, the least time the card could take for the same work, and the
 one PyTorch call that computes the same function where there is one; K1 and
-K2 at the training chunk, the `dg` K1 at its serving chunk, the other shapes
-under `ms_by_shape`), then
+K2 and the trilinear kernels at the training chunk, the other shapes under
+`ms_by_shape`), then
 the last line {"ok": true, "device": {...}}. Any failed check raises
-(non-zero exit); checks of phases 1b and 4-8 raise after phase 8, so one run
+(non-zero exit); checks of phases 1b and 4-9 raise after phase 9, so one run
 reports them all.
 """
 
@@ -118,7 +139,6 @@ DIN32_VS_PLAIN = 1.25  # max|kernel - fp64 sums| / max|folded - fp64 sums| [1.00
 # relative to the volume's largest value.
 TRILERP_TOL = 1e-5  # max|kernel - plain| / max|volume|
 VOXEL_RES = 64
-VOXEL_PCL_POINTS = 16384
 DG_STEP = 30000  # stage 3 of the dg curriculum: ray_chunks 16
 # Phase 4 bounds for each of the nine grads of the backward kernel against
 # `film_siren_mlp_folded_vjp` (same bf16 roundings of h, cos7, g and dpre;
@@ -137,6 +157,26 @@ BWD_LOW_TOL = 7e-3  # max|K2 - plain| / max|plain| at freq/30 [3.57e-3]
 BWD_VS_PLAIN = 1.25
 BWD_VS_PLAIN_MAX = 1.6
 BWD_ULPS = 8 * 2.0 ** -24
+# Phase 4b: K2 at Din 32 and L 8 (TALLSIREN_FG's init) in phase 4's style,
+# each bound about twice the sound kernel's H100 reading or above it by a
+# third [in brackets: the largest over the nine grads and three shapes].
+# Over 8 layers a flipped bf16 rounding grows through twice as many
+# products as at L 4, so the readings are ~3x phase 4's; the ratios to the
+# fp64 sums, plus BWD_ULPS roundings of the grad's largest value, are about
+# phase 4's.
+DIN32_BWD_NORM_TOL = 1e-2  # |K2 - plain|_2 / |plain|_2 at freq 25-45 [5.11e-3]
+DIN32_BWD_LOW_TOL = 1e-2  # max|K2 - plain| / max|plain| at freq/30 [4.52e-3]
+DIN32_BWD_VS_PLAIN = 1.5  # |K2 - fp64|_2 / |plain - fp64|_2 [1.269]
+DIN32_BWD_VS_PLAIN_MAX = 2.0  # max|K2 - fp64| / max|plain - fp64| [1.507]
+# Phase 6, the trilinear backward. dcoords: the kernel and the plain version
+# sum the same fp32 products over the channels in another order; bound
+# relative to the plain version's largest dcoord. dV: fp32 atomics in a
+# launch's own order; each voxel of it is within k_v fp32 roundings of the
+# per-voxel sum of |contributions| from their fp64 sum (k_v contributions:
+# any order of fp32 sums is), and its L2 distance to the fp64 sum is no
+# more than TRI_BWD_VS_PLAIN times the plain fp32 `index_add_`'s.
+TRI_DCOORDS_TOL = 1e-5
+TRI_BWD_VS_PLAIN = 2.0
 # Phase 5: one train step with the kernels against the same step with the
 # plain versions in their places (same state, batch and random numbers). A
 # flipped pixel (sign of relu(sigma) at the last sample) moves a loss by
@@ -145,6 +185,12 @@ STEP_LOSS_TOL = 1e-4  # |kernel - plain| / |plain| for each loss [1.06e-6]
 STEP_GRAD_TOL = 5e-3  # |kernel - plain|_2 / |plain|_2 over a net's grads [8.75e-5]
 TRAIN_STEP = 16000  # stage 2 of the thesis curriculum, fade-in alpha 0.5
 TRAIN_TIMED_STEPS = 3
+# Phase 9: the dg step with the kernels against the same step with the
+# plain versions of K1, K2 and both trilinear kernels in their places, in
+# phase 5's style
+DG_STEP_LOSS_TOL = 1e-4
+DG_STEP_GRAD_TOL = 5e-3
+DG_TRAIN_STEP = 16000  # stage 2 of the dg curriculum
 # Phase 8 bounds for each study kernel against its plain version
 # `film_study_reference` (same bf16 operands, fp32 sums in another order),
 # on phase 1's inputs, in phase 1's style; relative to max(1, max|plain|)
@@ -351,7 +397,7 @@ def timed_row(phase: str, label: str, B: int, N: int, fn, plain_fn, bound_ms: fl
 def shape_row(timed: dict, main: str) -> dict:
     """The JSON row's numbers at the main path's shape `main`, the other
     shapes' under ms_by_shape."""
-    row = dict(timed[main], library_ms=None, shape=main)
+    row = {"library_ms": None, **timed[main], "shape": main}
     row["ms_by_shape"] = {label: t for label, t in timed.items() if label != main}
     return row
 
@@ -389,15 +435,17 @@ def phase1_kernel(device) -> dict:
 
 def phase1b_kernel_din32(device, failures: list) -> dict:
     """K1 at the voxel family's shape (32 sampled features, 8 layers) vs
-    plain folded, at the study size, the `dg` serving ray chunk and a ragged
-    N; returns the JSON row (times at the ray chunk, the main path's shape)."""
+    plain folded, at the study size, the `dg` training chunk, its serving
+    ray chunk and a ragged N; returns the JSON row (times at the training
+    chunk, where most of its main-path launches run)."""
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
         film_siren_mlp,
         film_siren_mlp_folded,
     )
 
-    shapes = [("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
-              ("dg ray chunk", 2, IMAGE_SIZE * IMAGE_SIZE // 16 * 48), ("ragged", 2, 1000)]
+    chunk_n = IMAGE_SIZE * IMAGE_SIZE // 16 * 48
+    shapes = [("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48), ("training chunk", 12, chunk_n),
+              ("dg ray chunk", 2, chunk_n), ("ragged", 2, 1000)]
     bounds = (DIN32_LOW_TOL, DIN32_MEAN_TOL, DIN32_Q999_TOL, DIN32_VS_PLAIN)
     worst, timed = 0.0, {}
     with torch.no_grad():
@@ -418,24 +466,7 @@ def phase1b_kernel_din32(device, failures: list) -> dict:
     return dict(name="film_siren_fwd_din32", route="cuda",
                 source="conditioned_nerf_gan_torch/csrc/film_siren_fwd.cu",
                 replaces="conditioned_nerf_gan_tpu/ops/pallas/film_siren.py:156",
-                launches=0, max_abs_err=worst, **shape_row(timed, "dg ray chunk"))
-
-
-def make_pcl(rng: np.random.Generator, n_boxes: int = 3,
-             n_points: int = PCL_POINTS) -> np.ndarray:
-    """One colored point cloud (n_points, 6) [xyz, rgb]: points on the
-    faces of a few colored boxes inside the +-0.35 cube, a car-like
-    stand-in for a ShapeNet cloud."""
-    per_box = -(-n_points // n_boxes)
-    parts = []
-    for _ in range(n_boxes):
-        center, half = rng.uniform(-0.2, 0.2, 3), rng.uniform(0.06, 0.18, 3)
-        u = rng.uniform(-1, 1, (per_box, 3))
-        face = rng.integers(0, 6, per_box)
-        u[np.arange(per_box), face // 2] = np.where(face % 2 == 0, 1.0, -1.0)
-        color = np.broadcast_to(rng.uniform(0.1, 1.0, 3), (per_box, 3))
-        parts.append(np.concatenate([center + u * half, color], axis=1))
-    return np.concatenate(parts)[:n_points].astype(np.float32)
+                launches=0, max_abs_err=worst, **shape_row(timed, "training chunk"))
 
 
 def make_requests(meta: dict, n: int, seed: int):
@@ -445,12 +476,13 @@ def make_requests(meta: dict, n: int, seed: int):
         create_cam2world_matrix,
         sample_camera_positions,
     )
+    from conditioned_nerf_gan_torch.training.bench_setup import make_pcl
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
     requests = []
     for _ in range(n):
-        pcl = np.stack([make_pcl(rng) for _ in range(BATCH)])
+        pcl = np.stack([make_pcl(rng, n_points=PCL_POINTS) for _ in range(BATCH)])
         origins = sample_camera_positions(BATCH, generator=gen,
                                           cam_r_start=meta["cam_r_start"],
                                           cam_r_end=meta["cam_r_end"])
@@ -602,15 +634,16 @@ def phase3_profile(inf, request, unprofiled_s: float, phase: str = "phase 3") ->
     print_top(phase, by_name, n=12)
 
 
-def bwd_inputs(B: int, N: int, seed: int, device):
-    """kernel_inputs and a cotangent g (B, N, 4) ~ N(0, 1), from the seed."""
-    inp = kernel_inputs(B, N, seed, device)
+def bwd_inputs(B: int, N: int, seed: int, device, make_inputs=None):
+    """kernel_inputs (or `make_inputs`'s) and a cotangent g (B, N, 4) ~
+    N(0, 1), from the seed."""
+    inp = (make_inputs or kernel_inputs)(B, N, seed, device)
     rng = np.random.default_rng(seed + 1)
     g = torch.from_numpy(rng.normal(0, 1, (B, N, 4)).astype(np.float32)).to(device)
     return inp, g
 
 
-def vjp_fp64(inp: dict, g: torch.Tensor, chunk: int = 131072):
+def vjp_fp64(inp: dict, g: torch.Tensor, chunk: int = 16384):
     """`film_siren_mlp_folded_vjp` with fp64 sums, over chunks of N: the
     folded grads are sums over points, so the chunks' grads add."""
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
@@ -635,7 +668,8 @@ def vjp_fp64(inp: dict, g: torch.Tensor, chunk: int = 131072):
 GRAD_NAMES = ("dpoints", "dfreq", "dphase", "dw0", "db0", "dws", "dbs", "dwf", "dbf")
 
 
-def check_bwd(label: str, inp: dict, g: torch.Tensor, failures: list) -> float:
+def check_bwd(label: str, inp: dict, g: torch.Tensor, failures: list, phase: str = "phase 4",
+              bounds=(BWD_NORM_TOL, BWD_LOW_TOL, BWD_VS_PLAIN, BWD_VS_PLAIN_MAX)) -> float:
     """Hold the backward kernel against the plain VJP at one shape; returns
     the largest max|K2 - plain| over the nine grads at freq 25-45."""
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
@@ -643,7 +677,6 @@ def check_bwd(label: str, inp: dict, g: torch.Tensor, failures: list) -> float:
         film_siren_mlp_folded_vjp,
     )
 
-    B, N, _ = inp["points"].shape
     out = film_siren_mlp_bwd(*inp.values(), g)
     again = film_siren_mlp_bwd(*inp.values(), g)
     equal = all(torch.equal(a, b) for a, b in zip(out, again))
@@ -653,13 +686,16 @@ def check_bwd(label: str, inp: dict, g: torch.Tensor, failures: list) -> float:
     low = dict(inp, freq=inp["freq"] / 30.0)
     out_low = film_siren_mlp_bwd(*low.values(), g)
     plain_low = film_siren_mlp_folded_vjp(*low.values(), g)
-    print(f"phase 4 [{label}] B={B} N={N}: two launches bitwise equal: {equal}")
+    B, N, din = inp["points"].shape
+    norm_tol, low_tol, vs_plain, vs_plain_max = bounds
+    print(f"{phase} [{label}] B={B} N={N} Din={din} L={inp['freq'].shape[1] // 256}: "
+          f"two launches bitwise equal: {equal}")
     if not equal:
-        failures.append(f"phase 4 [{label}]: two launches differ")
+        failures.append(f"{phase} [{label}]: two launches differ")
     worst = 0.0
     for name, k, p, e, kl, pl in zip(GRAD_NAMES, out, plain, exact, out_low, plain_low):
         if not torch.isfinite(k).all():
-            failures.append(f"phase 4 [{label}] {name}: non-finite")
+            failures.append(f"{phase} [{label}] {name}: non-finite")
         err = (k - p).abs().max().item()
         worst = max(worst, err)
         norm = ((k - p).norm() / p.norm()).item()
@@ -670,18 +706,18 @@ def check_bwd(label: str, inp: dict, g: torch.Tensor, failures: list) -> float:
         p64_2 = (p - e).norm().item()
         floor = BWD_ULPS * e.abs().max().item()
         floor_2 = BWD_ULPS * e.norm().item()
-        print(f"phase 4 [{label}] {name:7s} max|plain| {p.abs().max().item():.3e}: "
-              f"|K2-plain|_2/|plain|_2 {norm:.3e} (bound {BWD_NORM_TOL}); freq/30 "
-              f"max|K2-plain|/max|plain| {low_max:.3e} (bound {BWD_LOW_TOL}); "
+        print(f"{phase} [{label}] {name:7s} max|plain| {p.abs().max().item():.3e}: "
+              f"|K2-plain|_2/|plain|_2 {norm:.3e} (bound {norm_tol}); freq/30 "
+              f"max|K2-plain|/max|plain| {low_max:.3e} (bound {low_tol}); "
               f"|K2-fp64|_2 {k64_2:.3e} vs |plain-fp64|_2 {p64_2:.3e} (ratio "
-              f"{k64_2 / max(p64_2, 1e-30):.3f}, bound {BWD_VS_PLAIN} + {floor_2:.1e}); "
+              f"{k64_2 / max(p64_2, 1e-30):.3f}, bound {vs_plain} + {floor_2:.1e}); "
               f"max|K2-fp64| {k64:.3e} vs max|plain-fp64| {p64:.3e} (ratio "
-              f"{k64 / max(p64, 1e-30):.3f}, bound {BWD_VS_PLAIN_MAX} + {floor:.1e}); "
+              f"{k64 / max(p64, 1e-30):.3f}, bound {vs_plain_max} + {floor:.1e}); "
               f"max|K2-plain| {err:.3e}")
-        if not (norm < BWD_NORM_TOL and low_max < BWD_LOW_TOL
-                and k64_2 <= BWD_VS_PLAIN * p64_2 + floor_2
-                and k64 <= BWD_VS_PLAIN_MAX * p64 + floor):
-            failures.append(f"phase 4 [{label}] {name}: K2 disagrees with the plain VJP")
+        if not (norm < norm_tol and low_max < low_tol
+                and k64_2 <= vs_plain * p64_2 + floor_2
+                and k64 <= vs_plain_max * p64 + floor):
+            failures.append(f"{phase} [{label}] {name}: K2 disagrees with the plain VJP")
     return worst
 
 
@@ -712,6 +748,33 @@ def phase4_bwd(device, failures: list) -> dict:
                 launches=0, max_abs_err=worst, **shape_row(timed, "training chunk"))
 
 
+def phase4b_bwd_din32(device, failures: list) -> dict:
+    """K2 at the voxel family's shape (32 sampled features, 8 layers) vs the
+    plain VJP at the dg training chunk, stage 0's chunk and a ragged N;
+    returns the shapes' times (the training chunk is the main path's)."""
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp_bwd,
+        film_siren_mlp_folded_vjp,
+    )
+
+    chunk = IMAGE_SIZE * IMAGE_SIZE // 16 * 48
+    shapes = [("Din 32 L 8 training chunk", 12, chunk),
+              ("Din 32 L 8 stage-0 chunk", 12, 32 * 32 // 4 * 48),
+              ("Din 32 L 8 ragged", 2, 1000)]
+    bounds = (DIN32_BWD_NORM_TOL, DIN32_BWD_LOW_TOL, DIN32_BWD_VS_PLAIN, DIN32_BWD_VS_PLAIN_MAX)
+    worst, timed = 0.0, {}
+    for label, B, N in shapes:
+        inp, g = bwd_inputs(B, N, seed=1, device=device, make_inputs=voxel_kernel_inputs)
+        worst = max(worst, check_bwd(label, inp, g, failures, "phase 4b", bounds))
+        timed[label] = timed_row(
+            "phase 4b", label, B, N, lambda: film_siren_mlp_bwd(*inp.values(), g),
+            lambda: film_siren_mlp_folded_vjp(*inp.values(), g),
+            *film_bound(B, N, 8, 32, backward=True), 10 if B * N > 100_000 else 50)
+        del inp, g
+        torch.cuda.empty_cache()
+    return dict(worst=worst, timed=timed)
+
+
 class PlainFilmSiren(torch.autograd.Function):
     """Both kernels' plain versions as one differentiable op: the forward is
     `film_siren_mlp_folded`, the backward `film_siren_mlp_folded_vjp`."""
@@ -734,12 +797,34 @@ class PlainFilmSiren(torch.autograd.Function):
         return film_siren_mlp_folded_vjp(*ctx.saved_tensors, g)
 
 
+class PlainTrilinear(torch.autograd.Function):
+    """Both trilinear kernels' plain versions as one differentiable op: the
+    forward is `border_trilerp_reference`, the backward
+    `border_trilerp_vjp_reference`."""
+
+    @staticmethod
+    def forward(ctx, volume, coords):
+        from conditioned_nerf_gan_torch.ops.grid_sample import border_trilerp_reference
+
+        ctx.save_for_backward(volume, coords)
+        return border_trilerp_reference(volume, coords)
+
+    @staticmethod
+    def backward(ctx, g):
+        from conditioned_nerf_gan_torch.ops.grid_sample import border_trilerp_vjp_reference
+
+        volume, coords = ctx.saved_tensors
+        return border_trilerp_vjp_reference(volume, coords, g, ctx.needs_input_grad[1])
+
+
 def record_grads(state) -> dict:
-    """Wrap the three optimizers' step to keep each net's grads as they
-    arrive (before the clip); returns {net: flat grads}, filled per step."""
+    """Wrap the optimizers' step to keep each net's grads as they arrive
+    (before the clip); returns {net: flat grads}, filled per step."""
     grads = {}
     for net in ("G", "E", "D"):
         opt = getattr(state, f"opt_{net}")
+        if opt is None:  # no discriminator
+            continue
         step = opt.step
 
         def recording(*args, _net=net, _opt=opt, _step=step, **kwargs):
@@ -889,31 +974,137 @@ def trilerp_points(B: int, N: int, seed: int, device, border: bool = False):
     return torch.from_numpy(pts.astype(np.float32)).to(device)
 
 
-def phase6_trilinear(device, failures: list) -> dict:
-    """The trilinear kernel vs `border_trilerp_reference` on a 2 x 64^3 x 32
-    volume (the dg feature volume's shape) at three point sets; returns the
-    JSON row (times at the study size)."""
+def ray_points(B: int, seed: int, device) -> torch.Tensor:
+    """The coarse samples of one ray chunk of a 128^2 render with 48 samples
+    (the 16 chunks' middle one: 8 image rows through the object, ray-major
+    as the generator lays them out) from B cameras on the shell, drawn from
+    the seed, in the sampler's normalized coordinates: (B, 8 * 128 * 48, 3)."""
+    from conditioned_nerf_gan_torch.models.siren import VOXEL_LENGTH
+    from conditioned_nerf_gan_torch.ops.rays import (
+        create_cam2world_matrix,
+        get_initial_rays,
+        sample_camera_positions,
+        transform_rays,
+    )
+
+    u = torch.from_numpy(np.random.default_rng(seed).uniform(0, 1, (B, 3)).astype(np.float32))
+    cams = create_cam2world_matrix(sample_camera_positions(
+        B, cam_r_start=0.7, cam_r_end=1.5, uniforms=u)).to(device)
+    rows = IMAGE_SIZE // 16
+    points, z_vals, rays_d = get_initial_rays(
+        B, 48, 49.134342641202636, (IMAGE_SIZE, rows), 0.25, 1.95,
+        row_offset=IMAGE_SIZE // 2, full_height=IMAGE_SIZE, device=device)
+    points = transform_rays(points, z_vals, rays_d, cams)[0]
+    return (points.reshape(B, -1, 3) / (VOXEL_LENGTH / 2.0)).contiguous()
+
+
+def device_ms(fn, names: tuple, iters: int = 20) -> float:
+    """fn's device time per call in ms: the device time of the kernels whose
+    names hold one of `names`, over `iters` calls under torch.profiler,
+    over iters (NaN when the profiler sees no device work). A small kernel
+    takes less than its wrapper's host time, which an event-timed loop of
+    calls measures instead."""
+    fn()
+    torch.cuda.synchronize()
+    profiled = profile_device(lambda: [fn() for _ in range(iters)])
+    if profiled is None:
+        return float("nan")
+    by_name = profiled[2]
+    us = sum(t for name, (t, _) in by_name.items() if any(n in name for n in names))
+    return us / iters / 1e3
+
+
+def touched_rows(volume: torch.Tensor, coords: torch.Tensor) -> int:
+    """Distinct corner rows (voxels) the points read: the data-dependent part
+    of a gather's compulsory bytes."""
+    from conditioned_nerf_gan_torch.ops.grid_sample import corner_contributions
+
+    g = torch.zeros(*coords.shape[:2], 4, device=coords.device)
+    rows, _ = corner_contributions(volume[..., :4], coords, g)
+    return int(torch.unique(rows).numel())
+
+
+def check_trilinear_bwd(label: str, volume, coords, g, failures: list) -> float:
+    """Hold the trilinear backward kernel against `border_trilerp_vjp_reference`
+    (dcoords) and against an fp64 scatter of the same contributions (dV, in
+    k_v fp32 roundings of sum|contributions| per voxel, and by L2 distance no
+    farther than TRI_BWD_VS_PLAIN x the plain fp32 `index_add_`'s); returns
+    max|dV - plain|."""
+    from conditioned_nerf_gan_torch.ops.grid_sample import (
+        border_trilerp_vjp_reference,
+        corner_contributions,
+    )
+    from conditioned_nerf_gan_torch.ops.kernels.trilinear import trilinear_bwd
+
+    dvol, dcoords = trilinear_bwd(volume, coords, g, need_volume=True, need_coords=True)
+    pvol, pcoords = border_trilerp_vjp_reference(volume, coords, g, True)
+    rows, parts = corner_contributions(volume, coords, g)
+    C = volume.shape[-1]
+    exact = torch.zeros(volume.numel() // C, C, dtype=torch.float64, device=volume.device)
+    exact.index_add_(0, rows, parts.double())
+    magnitude = torch.zeros_like(exact).index_add_(0, rows, parts.double().abs())
+    count = torch.zeros(exact.shape[0], dtype=torch.float64, device=volume.device)
+    count.index_add_(0, rows, (parts != 0).any(-1).double())
+    del parts, rows
+    dflat, pflat = dvol.reshape(-1, C).double(), pvol.reshape(-1, C).double()
+    k64, p64 = (dflat - exact).norm().item(), (pflat - exact).norm().item()
+    ulp = 2.0 ** -24
+    roundings = ((dflat - exact).abs() / (ulp * magnitude).clamp_min(1e-300))
+    within = bool(((dflat - exact).abs() <= count[:, None] * ulp * magnitude).all())
+    floor = ulp * exact.norm().item()
+    c_err = (dcoords - pcoords).abs().max().item()
+    c_max = pcoords.abs().max().item()
+    err = (dvol - pvol).abs().max().item()
+    print(f"phase 6 [{label}] backward: dcoords max|kernel - plain| {c_err:.3e} (bound "
+          f"{TRI_DCOORDS_TOL} x max|plain| {c_max:.3e}); dV max|kernel - plain| {err:.3e}, "
+          f"|kernel - fp64|_2 {k64:.3e} vs |index_add - fp64|_2 {p64:.3e} (ratio "
+          f"{k64 / max(p64, 1e-300):.3f}, bound {TRI_BWD_VS_PLAIN} + {floor:.1e}); every voxel "
+          f"within k_v roundings of sum|contributions|: {within} (largest "
+          f"{roundings.max().item():.2f} roundings; k_v up to {int(count.max().item())})")
+    if not (torch.isfinite(dvol).all() and torch.isfinite(dcoords).all()
+            and c_err <= TRI_DCOORDS_TOL * c_max and within
+            and k64 <= TRI_BWD_VS_PLAIN * p64 + floor):
+        failures.append(f"phase 6 [{label}]: the backward kernel disagrees with its plain version")
+    return err
+
+
+def phase6_trilinear(device, failures: list) -> tuple[dict, dict]:
+    """Both trilinear kernels vs their plain versions on a 2 x 64^3 x 32
+    volume (the dg feature volume's shape) at five point sets and on a 12 x
+    64^3 x 32 volume at the training ray chunk; returns the forward's and
+    the backward's JSON rows (times at the training chunk, where most of
+    their main-path launches run)."""
     import torch.nn.functional as F
 
     from conditioned_nerf_gan_torch.models.siren import VOXEL_LENGTH
     from conditioned_nerf_gan_torch.ops.grid_sample import (
         border_trilerp_reference,
+        border_trilerp_vjp_reference,
         trilinear_point_features,
     )
+    from conditioned_nerf_gan_torch.ops.kernels.trilinear import trilinear_bwd
 
-    B, C = 2, 32
+    C = 32
     rng = np.random.default_rng(2)
-    volume = torch.from_numpy(rng.normal(0, 1, (B, VOXEL_RES, VOXEL_RES, VOXEL_RES, C))
-                              .astype(np.float32)).to(device)
-    vol_max = volume.abs().max().item()
-    volume_ncdhw = volume.permute(0, 4, 1, 2, 3).contiguous()
-    sets = [("study", IMAGE_SIZE * IMAGE_SIZE * 48, False), ("ragged", 1000, False),
-            ("border", 300_000, True)]
-    worst, row = 0.0, {}
-    with torch.no_grad():
-        for label, N, border in sets:
-            coords = trilerp_points(B, N, seed=3, device=device, border=border) / (
-                VOXEL_LENGTH / 2.0)
+    volumes = {B: torch.from_numpy(rng.normal(0, 1, (B, VOXEL_RES, VOXEL_RES, VOXEL_RES, C))
+                                   .astype(np.float32)).to(device) for B in (2, 12)}
+    chunk = IMAGE_SIZE * IMAGE_SIZE // 16 * 48
+    cube = lambda B, N, border=False: trilerp_points(B, N, 3, device, border) / (VOXEL_LENGTH / 2.0)
+    sets = [("study", 2, lambda: cube(2, IMAGE_SIZE * IMAGE_SIZE * 48)),
+            ("ragged", 2, lambda: cube(2, 1000)),
+            ("border", 2, lambda: cube(2, 300_000, border=True)),
+            ("dg ray chunk", 2, lambda: ray_points(2, 4, device)),
+            ("training chunk", 12, lambda: ray_points(12, 5, device))]
+    worst = worst_bwd = 0.0
+    fwd_rows, bwd_rows = {}, {}
+    for label, B, make in sets:
+        volume = volumes[B]
+        vol_max = volume.abs().max().item()
+        volume_ncdhw = volume.permute(0, 4, 1, 2, 3).contiguous()
+        coords = make()
+        N = coords.shape[1]
+        assert coords.shape == (B, N, 3) and (label != "training chunk" or N == chunk)
+        with torch.no_grad():
             out = trilinear_point_features(volume, coords)
             plain = border_trilerp_reference(volume, coords)
             err = (out - plain).abs().max().item()
@@ -923,76 +1114,96 @@ def phase6_trilinear(device, failures: list) -> dict:
                                align_corners=False)[:, :, 0, 0].transpose(1, 2)
             gs_err = (out - gs).abs().max().item()
             outside = (coords.abs() > 1).any(-1).float().mean().item()
+            rows = touched_rows(volume, coords)
             print(f"phase 6 [{label}] B={B} N={N} volume {VOXEL_RES}^3 x {C}: "
-                  f"max|kernel - plain| {err:.3e} (bound {TRILERP_TOL} x max|volume| "
-                  f"{vol_max:.3f}), max|kernel - F.grid_sample| {gs_err:.3e}, share of "
-                  f"points outside the cube {outside:.3f}")
+                  f"max|kernel - plain| {err:.3e} (bound {TRILERP_TOL} x "
+                  f"max|volume| {vol_max:.3f}), max|kernel - F.grid_sample| {gs_err:.3e}, share "
+                  f"of points outside the cube {outside:.4f}, distinct corner rows read "
+                  f"{rows} ({rows / volume.numel() * C:.4f} of the volume's)")
             if not (torch.isfinite(out).all() and err <= TRILERP_TOL * vol_max):
                 failures.append(f"phase 6 [{label}]: kernel disagrees with its plain version")
-            iters = 20 if N > 100_000 else 50
-            ms = cuda_ms(lambda: trilinear_point_features(volume, coords), iters)
+            del out, plain, gs
+            iters = 20 if B * N > 100_000 else 50
+            main = lambda: trilinear_point_features(volume, coords)
+            event_ms = cuda_ms(main, iters)
+            ms = device_ms(main, ("trilinear_fwd_kernel",))
             plain_ms = cuda_ms(lambda: border_trilerp_reference(volume, coords),
                                max(3, iters // 5))
             gs_ms = cuda_ms(lambda: F.grid_sample(volume_ncdhw, grid, mode="bilinear",
                                                   padding_mode="border",
                                                   align_corners=False), iters)
             gathered = B * N * 8 * C * 4
-            # each input read once (volume, coords), the output written once;
-            # per point 7 lerps of C channels (a subtract and an FMA each)
-            # and ~30 instructions of anchors and weights
-            bound_ms, bound_by = bound(volume.numel() * 4 + B * N * (3 + C) * 4, 0.0,
+            # the coordinates read and the output written once, and each
+            # distinct corner row the points touch read once; per point 7
+            # lerps of C channels (a subtract and an FMA each) and ~30
+            # instructions of anchors and weights
+            bound_ms, bound_by = bound(B * N * (3 + C) * 4 + rows * C * 4, 0.0,
                                        float(B * N * (14 * C + 30)))
-            print(f"phase 6 [{label}] time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"F.grid_sample (NCDHW, yardstick) {gs_ms:.4f} ms; kernel "
+            print(f"phase 6 [{label}] time (device): kernel {ms:.4f} ms; a call "
+                  f"of the wrapper {event_ms:.4f} ms (events), plain {plain_ms:.4f} ms, "
+                  f"F.grid_sample (NCDHW, yardstick) {gs_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"({bound_by}), kernel at {bound_ms / ms:.3f} of it; "
                   f"{B * N / ms / 1e3:.1f} Mpoints/s, {gathered / ms / 1e6:.1f} GB/s of "
-                  f"corner reads; bound {bound_ms:.4f} ms ({bound_by})")
-            if label == "study":
-                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=gs_ms)
-            del coords, out, plain, gs
-    del volume, volume_ncdhw
+                  "corner reads")
+            fwd_rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=gs_ms, call_ms=event_ms)
+
+        # the backward at the same points, cotangent ~ N(0, 1)
+        g = torch.from_numpy(np.random.default_rng(6).normal(0, 1, (B, N, C))
+                             .astype(np.float32)).to(device)
+        worst_bwd = max(worst_bwd, check_trilinear_bwd(label, volume, coords, g, failures))
+        grad_ncdhw = g.transpose(1, 2)[:, :, None, None, :].contiguous()
+        main = lambda: trilinear_bwd(volume, coords, g)
+        event_ms = cuda_ms(main, iters)
+        ms = device_ms(main, ("trilinear_bwd_kernel", "FillFunctor"))
+        scatter_ms = device_ms(main, ("trilinear_bwd_kernel",))
+        plain_ms = cuda_ms(lambda: border_trilerp_vjp_reference(volume, coords, g, False),
+                           max(3, iters // 5))
+        lib_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+            grad_ncdhw, volume_ncdhw, grid, 0, 1, False, [True, False]), iters)
+        # coordinates and cotangent read once, dV written once (its zeroing
+        # is the design's own cost, not the function's)
+        bound_ms, bound_by = bound(B * N * (3 + C) * 4 + volume.numel() * 4, 0.0,
+                                   float(B * N * 8 * C))
+        print(f"phase 6 [{label}] backward time (dV only, as on the main path; device, dV's "
+              f"zeroing included): kernel {ms:.4f} ms, of which the scatter kernel "
+              f"{scatter_ms:.4f} ms and dV's zeroing {ms - scatter_ms:.4f} ms; a call of the "
+              f"wrapper {event_ms:.4f} ms (events), plain {plain_ms:.4f} ms, "
+              f"grid_sampler_3d_backward (NCDHW, yardstick) {lib_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / ms:.3f} of it")
+        bwd_rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=lib_ms, call_ms=event_ms, scatter_ms=scatter_ms)
+        del coords, g, grad_ncdhw, volume_ncdhw, grid
+        torch.cuda.empty_cache()
+    del volumes
     torch.cuda.empty_cache()
-    return dict(name="trilinear_fwd", route="cuda",
-                source="conditioned_nerf_gan_torch/csrc/trilinear_fwd.cu",
-                replaces="scripts/bench_pallas_gather.py:42",
-                launches=0, max_abs_err=worst, **row)
-
-
-def voxelize(pcl: np.ndarray, resolution: int, length: float = 1.2) -> np.ndarray:
-    """(P, 6) colored points -> (R, R, R, 4) [occupancy, r, g, b] in (x, y,
-    z) order: the rule of the repo's voxelize_pcl (clip into the cube, floor
-    to a cell, mean color per occupied cell)."""
-    points = np.clip(pcl[:, :3].astype(np.float64), -length / 2 + 1e-4, length / 2 - 1e-4)
-    colors = np.clip(pcl[:, 3:].astype(np.float64), 0.0, 1.0)
-    idx = np.clip(np.floor((points + length / 2) / (length / resolution)).astype(np.int64),
-                  0, resolution - 1)
-    flat = (idx[:, 0] * resolution + idx[:, 1]) * resolution + idx[:, 2]
-    color_sum = np.zeros((resolution ** 3, 3))
-    count = np.zeros(resolution ** 3)
-    np.add.at(color_sum, flat, colors)
-    np.add.at(count, flat, 1.0)
-    voxel = np.zeros((resolution ** 3, 4))
-    occupied = count > 0
-    voxel[occupied, 0] = 1.0
-    voxel[occupied, 1:] = color_sum[occupied] / count[occupied, None]
-    return voxel.reshape(resolution, resolution, resolution, 4)
+    fwd = dict(name="trilinear_fwd", route="cuda",
+               source="conditioned_nerf_gan_torch/csrc/trilinear_fwd.cu",
+               replaces="scripts/bench_pallas_gather.py:42", launches=0, max_abs_err=worst,
+               **shape_row(fwd_rows, "training chunk"))
+    bwd = dict(name="trilinear_bwd", route="cuda",
+               source="conditioned_nerf_gan_torch/csrc/trilinear_bwd.cu",
+               replaces="conditioned_nerf_gan_tpu/ops/grid_sample.py:128 (_expanded_bwd, the "
+                        "custom VJP of _border_trilerp; XLA, no pl.pallas_call)",
+               launches=0, max_abs_err=worst_bwd, **shape_row(bwd_rows, "training chunk"))
+    return fwd, bwd
 
 
 def make_voxel_requests(meta: dict, n: int, seed: int):
     """n requests of BATCH voxel grids (seeded `make_pcl` clouds voxelised
-    at VOXEL_RES, put in NDHWC by the port's helper) with cameras."""
-    from conditioned_nerf_gan_torch.infer import voxel_to_ndhwc
+    at 64^3, in the U-Net's NDHWC layout: the bench's `make_voxel_grids`)
+    with cameras."""
     from conditioned_nerf_gan_torch.ops.rays import (
         create_cam2world_matrix,
         sample_camera_positions,
     )
+    from conditioned_nerf_gan_torch.training.bench_setup import make_voxel_grids
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
     requests = []
     for _ in range(n):
-        voxel = np.stack([voxel_to_ndhwc(voxelize(make_pcl(rng, n_points=VOXEL_PCL_POINTS),
-                                                  VOXEL_RES)) for _ in range(BATCH)])
+        voxel = make_voxel_grids(rng, BATCH, VOXEL_RES)
         origins = sample_camera_positions(BATCH, generator=gen,
                                           cam_r_start=meta["cam_r_start"],
                                           cam_r_end=meta["cam_r_end"])
@@ -1096,6 +1307,160 @@ def phase7_dg_serve(device, build_dir, failures: list):
     if diff.mean() > RENDER_MEAN_TOL or over > RENDER_OVER_SHARE:
         failures.append("phase 7: kernel render disagrees with the plain render")
     return launches, inf, requests[-1], dt
+
+
+def phase9_dg_train(device, failures: list) -> dict:
+    """The voxel family's stage-2 train step at full width; returns the four
+    kernels' launches per step in the main path's run (warm-up and timed
+    steps; the comparison and profiled steps after it are not counted)."""
+    import conditioned_nerf_gan_torch.models.siren as siren_module
+    from conditioned_nerf_gan_torch.ops.grid_sample import trilinear_point_features
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp,
+        film_siren_mlp_bwd,
+    )
+    from conditioned_nerf_gan_torch.ops.kernels.trilinear import trilinear_bwd
+    from conditioned_nerf_gan_torch.training import (
+        build_stage_bench,
+        create_train_state,
+        make_train_step,
+    )
+
+    counters = (film_siren_mlp, film_siren_mlp_bwd, trilinear_point_features, trilinear_bwd)
+
+    def take_counts():
+        counts = tuple(c.launches for c in counters)
+        for c in counters:
+            c.launches = 0
+        return counts
+
+    t0 = time.perf_counter()
+    bench = build_stage_bench("dg", stage=2, step=DG_TRAIN_STEP)
+    cfg, meta = bench.config, bench.meta
+    nets = dict(G=bench.generator, E=bench.encoder)
+    for net in nets.values():
+        net.to(device)
+    state = create_train_state(nets["G"], nets["E"], None, cfg)
+    train_step = make_train_step(cfg)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in bench.batch.items()}
+    rng = torch.Generator(device=device).manual_seed(0)
+    r = cfg.render
+    chunks = max(r.ray_chunks, 1)
+    evals = 2 if r.hierarchical_sample else 1
+    calls = evals * chunks  # SIREN calls (each a trilinear lookup first) per render
+    # per step: the G render (with grad) and its per-chunk recompute in the
+    # backward, plus the D step's render when D is on; one backward of each
+    # kernel per call of the G render
+    renders = 2 + (1 if cfg.enable_discriminator else 0)
+    design = (renders * calls, calls, renders * calls, calls)
+    print(f"phase 9: dg preset, step {DG_TRAIN_STEP}: batch {meta['batch_size']}, "
+          f"{meta['unet']['type']} f_maps {meta['unet']['f_maps']} x "
+          f"{meta['unet']['num_levels']} levels on {tuple(batch['voxel'].shape)}, "
+          f"{meta['generator']['siren_type']}, {r.img_size}^2, {r.num_steps}+{r.num_steps} "
+          f"samples, ray_chunks {r.ray_chunks}, discriminator {cfg.enable_discriminator}, "
+          f"grad_accum_scale {cfg.grad_accum_scale}; design launches per step K1 {design[0]}, "
+          f"K2 {design[1]}, trilinear {design[2]}, trilinear backward {design[3]}; set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+    before = {name: [p.detach().clone() for p in net.parameters()]
+              for name, net in nets.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    take_counts()
+    step_s, totals = [], [0, 0, 0, 0]
+    for i in range(1 + TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, rng, bench.alpha, bench.nerf_noise)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        counts = take_counts()
+        totals = [t + c for t, c in zip(totals, counts)]
+        losses = {k: float(v) for k, v in metrics.items()}
+        print(f"phase 9 step {i}{' (warm-up)' if i == 0 else ''}: {step_s[-1]:.4f} s, launches "
+              f"K1 {counts[0]}, K2 {counts[1]}, trilinear {counts[2]}, trilinear backward "
+              f"{counts[3]} (design {design}), max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in losses.items()))
+        if counts != design:
+            failures.append(f"phase 9 step {i}: launches {counts}, design {design}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            failures.append(f"phase 9 step {i}: non-finite losses {losses}")
+    timed = step_s[1:]
+    print(f"phase 9: {np.mean(timed):.4f} s/step (steps {', '.join(f'{t:.4f}' for t in timed)}), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name, net in nets.items():
+        moved = max((p.detach() - q).abs().max().item()
+                    for p, q in zip(net.parameters(), before[name]))
+        print(f"phase 9: {name} params moved by up to {moved:.3e}")
+        if not moved > 0:
+            failures.append(f"phase 9: {name} did not move")
+    del before
+
+    # one more step with the kernels, and the same step (state, batch, random
+    # numbers) with the plain versions in all four kernels' places
+    snapshot, rng_state = copy.deepcopy(state), rng.get_state()
+    runs = {}
+    for label in ("kernels", "plain"):
+        trial = copy.deepcopy(snapshot)
+        grads = record_grads(trial)
+        rng.set_state(rng_state)
+        if label == "plain":
+            siren_module.film_siren_mlp = PlainFilmSiren.apply
+            siren_module.trilinear_point_features = (
+                lambda volume, coords, **_: PlainTrilinear.apply(volume, coords))
+        try:
+            _, metrics = train_step(trial, batch, rng, bench.alpha, bench.nerf_noise)
+        finally:
+            siren_module.film_siren_mlp = film_siren_mlp
+            siren_module.trilinear_point_features = trilinear_point_features
+        runs[label] = ({k: float(v) for k, v in metrics.items()}, grads)
+        del trial
+        torch.cuda.empty_cache()
+    take_counts()
+    (loss_k, grad_k), (loss_p, grad_p) = runs["kernels"], runs["plain"]
+    for k in loss_k:
+        rel = abs(loss_k[k] - loss_p[k]) / max(abs(loss_p[k]), 1e-30)
+        print(f"phase 9: {k} kernels {loss_k[k]:.7f} plain {loss_p[k]:.7f} "
+              f"(rel {rel:.3e}, bound {DG_STEP_LOSS_TOL})")
+        if not rel <= DG_STEP_LOSS_TOL:
+            failures.append(f"phase 9: {k} differs from the plain step")
+    for net in ("G", "E"):
+        rel = ((grad_k[net] - grad_p[net]).norm() / grad_p[net].norm()).item()
+        print(f"phase 9: {net} grads |kernels - plain|_2/|plain|_2 {rel:.3e} "
+              f"(bound {DG_STEP_GRAD_TOL}), |plain|_2 {grad_p[net].norm().item():.3e}")
+        if not rel <= DG_STEP_GRAD_TOL:
+            failures.append(f"phase 9: {net} grads differ from the plain step")
+    del runs, snapshot
+    torch.cuda.empty_cache()
+
+    # one profiled step: device busy share against the timed steps' mean
+    profiled = profile_device(
+        lambda: train_step(state, batch, rng, bench.alpha, bench.nerf_noise))
+    take_counts()
+    if profiled is None:
+        print("phase 9: the profiler recorded no device activity; busy share not measured")
+    else:
+        n_events, busy_ms, by_name = profiled
+        mean_ms = np.mean(timed) * 1e3
+        print(f"phase 9: profiled step: {n_events} device activities, device busy "
+              f"{busy_ms:.3f} ms; busy share {busy_ms / mean_ms:.4f} of the timed steps' mean "
+              f"{mean_ms:.3f} ms (idle {1 - busy_ms / mean_ms:.4f})")
+        print_top("phase 9", by_name, n=16)
+    dv_shape = (*batch["voxel"].shape[:4], meta["unet"]["out_channels"])
+    del state, batch, nets, bench
+    torch.cuda.empty_cache()
+
+    # what one full-size dV a chunk costs: the backward launcher zeroes one,
+    # and autograd sums the chunks' dVs into the volume's grad
+    a, b = torch.zeros(dv_shape, device=device), torch.zeros(dv_shape, device=device)
+    zero_ms = cuda_ms(lambda: torch.zeros(dv_shape, device=device), iters=10)
+    add_ms = cuda_ms(lambda: a.add_(b), iters=10)
+    print(f"phase 9: one dV {dv_shape} ({a.numel() * 4 / 1e6:.1f} MB) a chunk: zeroing "
+          f"{zero_ms:.4f} ms, one sum into the volume's grad {add_ms:.4f} ms; {calls} "
+          f"zeroings and {calls - 1} sums a step {calls * zero_ms + (calls - 1) * add_ms:.3f} ms")
+    del a, b
+    torch.cuda.empty_cache()
+    return dict(zip(("k1", "k2", "trilinear", "trilinear_bwd"), totals))
 
 
 def check_study(kernel: str, mode: str, tiles: list[int], label: str, inp: dict,
@@ -1252,7 +1617,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build.load_libraries("film_siren_fwd", "film_siren_bwd", "trilinear_fwd",
-                                "film_siren_study")
+                                "trilinear_bwd", "film_siren_study")
     print(f"built {len(libs)} kernel libraries in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -1272,9 +1637,10 @@ def main() -> int:
     del inf
     torch.cuda.empty_cache()
     bwd = phase4_bwd(device, failures)
+    bwd32 = phase4b_bwd_din32(device, failures)
     train_fwd, train_bwd = phase5_train(device, failures)
     torch.cuda.empty_cache()
-    tri = phase6_trilinear(device, failures)
+    tri, tri_bwd = phase6_trilinear(device, failures)
     (dg_k1, dg_tri), inf, last_request, last_s = phase7_dg_serve(
         device, Path(build.BUILD_DIR), failures)
     phase3_profile(inf, last_request, last_s, phase="phase 7 profile")
@@ -1282,21 +1648,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     study_rows, study = phase8_study(device, failures,
                                      fwd["ms_by_shape"]["thesis render"]["ms"])
+    dg = phase9_dg_train(device, failures)
     if failures:
         raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
     fwd["launches"] = serve_launches + train_fwd + study["k1"]
     fwd["launches_by_path"] = {"serve": serve_launches, "train": train_fwd,
                                "film_study": study["k1"]}
-    fwd32["launches"] = dg_k1
-    fwd32["launches_by_path"] = {"dg_serve": dg_k1}
-    bwd["launches"] = train_bwd + study["k2"]
-    bwd["launches_by_path"] = {"train": train_bwd, "film_study": study["k2"]}
-    tri["launches"] = dg_tri
-    tri["launches_by_path"] = {"dg_serve": dg_tri}
+    fwd32["launches"] = dg_k1 + dg["k1"]
+    fwd32["launches_by_path"] = {"dg_serve": dg_k1, "dg_train": dg["k1"]}
+    bwd["launches"] = train_bwd + study["k2"] + dg["k2"]
+    bwd["launches_by_path"] = {"train": train_bwd, "film_study": study["k2"],
+                               "dg_train": dg["k2"]}
+    bwd["ms_by_shape"].update(bwd32["timed"])
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd32["worst"])
+    tri["launches"] = dg_tri + dg["trilinear"]
+    tri["launches_by_path"] = {"dg_serve": dg_tri, "dg_train": dg["trilinear"]}
+    tri_bwd["launches"] = dg["trilinear_bwd"]
+    tri_bwd["launches_by_path"] = {"dg_train": dg["trilinear_bwd"]}
     for row, kernel in zip(study_rows, ("v3", "v4", "v5")):
         row["launches"] = study[kernel]
         row["launches_by_path"] = {"film_study": study[kernel]}
-    print(json.dumps({"kernels": [fwd, fwd32, bwd, tri, *study_rows]}))
+    print(json.dumps({"kernels": [fwd, fwd32, bwd, tri, tri_bwd, *study_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

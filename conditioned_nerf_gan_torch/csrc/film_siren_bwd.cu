@@ -13,7 +13,10 @@
 //   weights    dWsf[b,l] = h_l^T dpre_{l+1}, dcs[b,l] = 1^T dpre_{l+1},
 //              dW0f[b] = x^T dpre_0, dc0[b] = 1^T dpre_0,
 //              dWf[b] = h_{L-1}^T gb, dbf[b] = 1^T gb        (summed over points)
-// with bf16 operands and fp32 sums throughout. Points of 3 features only.
+// with bf16 operands and fp32 sums throughout. Two instances of the sweep:
+// DIN = 3 (xyz points) and DIN = 32 (trilinearly sampled U-Net features,
+// whose dX is the cotangent the trilinear backward scatters into the U-Net's
+// feature volume); L from 2 to 8 layers of 256 units.
 //
 // What bounds it: the recompute and the sweep are 2 x (L-1) x 256 x 256 x 2
 // FLOP per point on the tensor cores, the weight grads another (L-1) x 256 x
@@ -43,9 +46,14 @@
 //       the last keeps cos in its buffer, and dpre_{L-1} = bf16(gb . Wf^T *
 //       cos) comes from g and Wf on the FMA units; each backward epilogue
 //       reads cos_l back (cp.async, while the products run) and stores dpre_l
-//       over it. dX comes from dpre_0 on the FMA units. It also writes the
-//       bf16 points and cotangent as one 64-column row per point (x in
-//       columns 0-2, g in 3-6). Scratch: 4 KB + 128 bytes per point. What
+//       over it. Layer 0 of the recompute is the trunk's (`layer0_products`,
+//       K1's code: FMA units at DIN 3, two wgmma k-steps at 32). dX =
+//       dpre_0 . W0f^T: at DIN 3 on the FMA units; at DIN 32 a wgmma
+//       m64n32k16 loop over K = 256, A the buffer dpre_0's epilogue staged,
+//       B W0f (32 rows x 256) TMA-loaded into one ring stage after the
+//       backward chunks. It also writes the bf16 points and cotangent as
+//       one 64-column row per point (x in columns 0 .. DIN-1, g in DIN ..
+//       DIN+3). Scratch: 2L KB + 128 bytes per point. What
 //       set its pace was its code: one loop holds every layer's epilogue and
 //       the next layer's products, once each; with the layers unrolled the
 //       sweep ran at the rate its instructions were fetched, far below the
@@ -59,8 +67,8 @@
 //       the same shared-memory chunk (16-byte loads of 8 columns, plain sums
 //       within a chunk, Kahan-compensated across chunks, the 8 warps' sums
 //       added in warp order). dW0f and dWf are 64-row tiles over the
-//       point/cotangent rows: x^T dpre_0 (rows 0-2) and gb^T h_{L-1} (rows
-//       3-6, stored transposed); dbf sums columns 3-6;
+//       point/cotangent rows: x^T dpre_0 (rows 0 .. DIN-1) and gb^T h_{L-1}
+//       (rows DIN .. DIN+3, stored transposed); dbf sums those columns;
 //   (c) film_siren_bwd_reduce sums the segments' partials in segment order.
 //       No atomics: every sum runs in the same order in every launch, so the
 //       grads are bitwise deterministic from run to run.
@@ -71,9 +79,8 @@ namespace {
 
 using namespace film_trunk;
 
-constexpr int DIN = 3;      // xyz
-constexpr int XG_COLS = 64; // columns of the point/cotangent scratch (one 128-byte row)
-constexpr int XG_G = 3;     // its first cotangent column
+constexpr int XG_COLS = 64;  // columns of the point/cotangent scratch (one 128-byte row):
+                             // x in 0 .. DIN-1, the cotangent in DIN .. DIN+3
 
 // ---- the sweep -----------------------------------------------------------------
 
@@ -199,16 +206,35 @@ __device__ __forceinline__ void hidden_epilogue(const float (&acc)[ACC], const f
   store_rows(sa, hmap, row);
 }
 
-// pts (B, N, 3) f32; g (B, N, 4) f32; w0f (B, 3, H) bf16; c (B, L, H) f32;
-// wf (H, 4) bf16. tmap reads Wsf^T and wmap Wsf, each as ((B (L-1) H) x H).
-// Writes hbuf/pbuf (B, L, Np, H) bf16 (h_l; dpre_l) through hmap/pmap (each
-// ((B L Np) x H) in boxes of 16 rows x 64 columns) and reads cos_l back from
-// pbuf; writes xg (B, Np, 64) bf16 and dx (B, N, 3) f32. Np = tiles x TILE.
+// dX's products at DIN 32: A the warpgroup's dpre_0 buffer (64 rows x 256
+// K-values, as SharedA reads it), B the ring stage holding W0f[b] as 4
+// K-major blocks of 32 rows x 64 K-values (4 KB each): k-step s reads block
+// s / 4 at 32 bytes x (s % 4). layer_products hands over the stage's
+// descriptor advanced by 32 bytes a k-step.
+struct DxIssue {
+  uint32_t a;
+  __device__ __forceinline__ void operator()(float (&d)[16], int s, uint64_t desc_b,
+                                             int scale_d) const {
+    const uint64_t b = desc_b - 2 * s + (uint64_t)((s >> 2) * (4096 >> 4) + 2 * (s & 3));
+    wgmma_m64n32k16_ss(d, sw128_desc(a + (s >> 2) * 8192 + (s & 3) * 32), b, scale_d);
+  }
+};
+
+// pts (B, N, DIN) f32; g (B, N, 4) f32; w0f (B, DIN, H) bf16; c (B, L, H)
+// f32; wf (H, 4) bf16. tmap reads Wsf^T and wmap Wsf, each as ((B (L-1) H) x
+// H); at DIN 32 w0tmap reads W0f^T as ((B H) x 32) and w0map W0f as ((B 32)
+// x H) in boxes of 32 rows (at DIN 3 both are unused copies). Writes
+// hbuf/pbuf (B, L, Np, H) bf16 (h_l; dpre_l) through hmap/pmap (each ((B L
+// Np) x H) in boxes of 16 rows x 64 columns) and reads cos_l back from pbuf;
+// writes xg (B, Np, 64) bf16 and dx (B, N, DIN) f32. Np = tiles x TILE.
+template <int DIN>
 __global__ void __launch_bounds__(THREADS, 1)
 film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
                      const __grid_constant__ CUtensorMap wmap,
                      const __grid_constant__ CUtensorMap hmap,
                      const __grid_constant__ CUtensorMap pmap,
+                     const __grid_constant__ CUtensorMap w0tmap,
+                     const __grid_constant__ CUtensorMap w0map,
                      const float* __restrict__ pts, const float* __restrict__ g,
                      const __nv_bfloat16* __restrict__ w0f, const float* __restrict__ c,
                      const __nv_bfloat16* __restrict__ wf,
@@ -233,12 +259,15 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
     if (threadIdx.x == PRODUCER_WG * 128) {
       for (int item = blockIdx.x; item < items; item += gridDim.x) {
         const int b = item / tiles;
+        if constexpr (DIN == 32) produce(ring, &w0tmap, 0, b * H);  // layer 0: W0f^T
         for (int q = 0; q < layer_chunks; ++q)  // forward: Wsf[b, 0..L-2]^T
           produce(ring, &tmap, (q % CHUNKS_PER_LAYER) * KC,
                   (b * (L - 1) + q / CHUNKS_PER_LAYER) * H);
         for (int q = 0; q < layer_chunks; ++q)  // backward: Wsf[b, L-2..0]
           produce(ring, &wmap, (q % CHUNKS_PER_LAYER) * KC,
                   (b * (L - 1) + L - 2 - q / CHUNKS_PER_LAYER) * H);
+        if constexpr (DIN == 32)  // dX: W0f[b], 32 rows x 256
+          produce_blocks(ring, &w0map, b * DIN, DIN, CHUNKS_PER_LAYER);
       }
     }
   } else {
@@ -260,53 +289,59 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
       const int pb = pa + 8;
       const int prow = pa - (f.row0 & 15);  // this warp's row 0
       const float* cb = c + (size_t)b * L * H;
-      const __nv_bfloat16* w0b = w0f + (size_t)b * DIN * H;
       // this warp's first row of a scratch layer
       auto row_of = [&](int layer) { return (b * L + layer) * Np + prow; };
 
-      float xa[DIN], xb[DIN];
-#pragma unroll
-      for (int i = 0; i < DIN; ++i) {
-        xa[i] = pa < N ? bf16_round(pts[((size_t)b * N + pa) * DIN + i]) : 0.f;
-        xb[i] = pb < N ? bf16_round(pts[((size_t)b * N + pb) * DIN + i]) : 0.f;
-      }
+      // the xg rows of points pa and pb: lane q of the quad writes two
+      // 16-byte groups of each. At DIN 3 groups 2q, 2q + 1 (lane 0: x in
+      // columns 0-2, g in 3-6; the rest zeros); at DIN 32 group q (x, columns
+      // 8q .. 8q + 7) and group 4 + q (lane 0: g in columns 32-35; zeros)
       {
-        // the xg rows of points pa and pb: lane q of the quad writes 32 bytes
-        // (16 columns) q of each; columns 0-2 are x, 3-6 g, the rest zeros
         uint4 ra[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
         uint4 rb[2] = {ra[0], ra[1]};
-        if (f.q == 0) {
-          float ga[COUT], gb[COUT];
+        float ga[COUT], gb[COUT];
 #pragma unroll
-          for (int o = 0; o < COUT; ++o) {
-            ga[o] = pa < N ? g[((size_t)b * N + pa) * COUT + o] : 0.f;
-            gb[o] = pb < N ? g[((size_t)b * N + pb) * COUT + o] : 0.f;
-          }
-          ra[0] = make_uint4(pack_bf16(xa[0], xa[1]), pack_bf16(xa[2], ga[0]),
-                             pack_bf16(ga[1], ga[2]), pack_bf16(ga[3], 0.f));
-          rb[0] = make_uint4(pack_bf16(xb[0], xb[1]), pack_bf16(xb[2], gb[0]),
-                             pack_bf16(gb[1], gb[2]), pack_bf16(gb[3], 0.f));
+        for (int o = 0; o < COUT; ++o) {
+          ga[o] = pa < N && f.q == 0 ? g[((size_t)b * N + pa) * COUT + o] : 0.f;
+          gb[o] = pb < N && f.q == 0 ? g[((size_t)b * N + pb) * COUT + o] : 0.f;
         }
-        uint4* da = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pa) * XG_COLS) + 2 * f.q;
-        uint4* db = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pb) * XG_COLS) + 2 * f.q;
-        da[0] = ra[0];
-        da[1] = ra[1];
-        db[0] = rb[0];
-        db[1] = rb[1];
+        if constexpr (DIN == 3) {
+          if (f.q == 0) {
+            float xa[3], xb[3];
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+              xa[i] = pa < N ? pts[((size_t)b * N + pa) * 3 + i] : 0.f;
+              xb[i] = pb < N ? pts[((size_t)b * N + pb) * 3 + i] : 0.f;
+            }
+            ra[0] = make_uint4(pack_bf16(xa[0], xa[1]), pack_bf16(xa[2], ga[0]),
+                               pack_bf16(ga[1], ga[2]), pack_bf16(ga[3], 0.f));
+            rb[0] = make_uint4(pack_bf16(xb[0], xb[1]), pack_bf16(xb[2], gb[0]),
+                               pack_bf16(gb[1], gb[2]), pack_bf16(gb[3], 0.f));
+          }
+        } else {
+          auto x8 = [&](int p) {
+            if (p >= N) return make_uint4(0u, 0u, 0u, 0u);
+            const float4* x = reinterpret_cast<const float4*>(pts + ((size_t)b * N + p) * DIN) +
+                              2 * f.q;
+            const float4 u = x[0], v = x[1];
+            return make_uint4(pack_bf16(u.x, u.y), pack_bf16(u.z, u.w), pack_bf16(v.x, v.y),
+                              pack_bf16(v.z, v.w));
+          };
+          ra[0] = x8(pa);
+          rb[0] = x8(pb);
+          ra[1] = make_uint4(pack_bf16(ga[0], ga[1]), pack_bf16(ga[2], ga[3]), 0u, 0u);
+          rb[1] = make_uint4(pack_bf16(gb[0], gb[1]), pack_bf16(gb[2], gb[3]), 0u, 0u);
+        }
+        const int g0 = DIN == 3 ? 2 * f.q : f.q, g1 = DIN == 3 ? 2 * f.q + 1 : 4 + f.q;
+        uint4* da = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pa) * XG_COLS);
+        uint4* db = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pb) * XG_COLS);
+        da[g0] = ra[0];
+        da[g1] = ra[1];
+        db[g0] = rb[0];
+        db[g1] = rb[1];
       }
 
-      // layer 0 on the FMA units (x . W0f; the epilogue adds c_0)
-#pragma unroll
-      for (int j = 0; j < ACC / 4; ++j) {
-        const int n = f.col(j);
-        const float2 w_0 = ldg_bf16x2(w0b + n);
-        const float2 w_1 = ldg_bf16x2(w0b + H + n);
-        const float2 w_2 = ldg_bf16x2(w0b + 2 * H + n);
-        acc[4 * j] = xa[0] * w_0.x + xa[1] * w_1.x + xa[2] * w_2.x;
-        acc[4 * j + 1] = xa[0] * w_0.y + xa[1] * w_1.y + xa[2] * w_2.y;
-        acc[4 * j + 2] = xb[0] * w_0.x + xb[1] * w_1.x + xb[2] * w_2.x;
-        acc[4 * j + 3] = xb[0] * w_0.y + xb[1] * w_1.y + xb[2] * w_2.y;
-      }
+      layer0_products<DIN>(ring, f, acc, pts, w0f, b, N, pa, pb);
       // each layer's epilogue, then the next layer's products: one copy of
       // each in the code (unrolled, the kernel would be far larger than the
       // instruction cache, and it runs at the rate its code is fetched). The
@@ -380,40 +415,56 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
         wg_sync(wg_bar, wg_phase);
       }
 
-      // dX = dpre_0 . W0f^T on the FMA units, summed across the quad
-      float oa[DIN] = {0.f, 0.f, 0.f}, ob[DIN] = {0.f, 0.f, 0.f};
+      if constexpr (DIN == 32) {
+        // dX = dpre_0 . W0f^T on the tensor cores, A the buffer dpre_0 sits in
+        float d[16];
+        layer_products<1, 16>(ring, f.wg, d, DxIssue{a_buf});
 #pragma unroll
-      for (int j = 0; j < ACC / 4; j += 2) {
-        uint32_t dv[4];
-        ldmatrix_x4(dv, sa.frag(j));
+        for (int j = 0; j < 4; ++j) {
+          if (pa < N)
+            *reinterpret_cast<float2*>(dx + ((size_t)b * N + pa) * DIN + f.col(j)) =
+                make_float2(d[4 * j], d[4 * j + 1]);
+          if (pb < N)
+            *reinterpret_cast<float2*>(dx + ((size_t)b * N + pb) * DIN + f.col(j)) =
+                make_float2(d[4 * j + 2], d[4 * j + 3]);
+        }
+      } else {
+        // dX = dpre_0 . W0f^T on the FMA units, summed across the quad
+        const __nv_bfloat16* w0b = w0f + (size_t)b * DIN * H;
+        float oa[DIN] = {0.f, 0.f, 0.f}, ob[DIN] = {0.f, 0.f, 0.f};
 #pragma unroll
-        for (int m = 0; m < 4; m += 2) {
-          const int n = f.col(j + (m >> 1));
-          const float2 da = unpack_bf16(dv[m]), db = unpack_bf16(dv[m + 1]);
+        for (int j = 0; j < ACC / 4; j += 2) {
+          uint32_t dv[4];
+          ldmatrix_x4(dv, sa.frag(j));
 #pragma unroll
-          for (int i = 0; i < DIN; ++i) {
-            const float2 w = ldg_bf16x2(w0b + i * H + n);
-            oa[i] += da.x * w.x + da.y * w.y;
-            ob[i] += db.x * w.x + db.y * w.y;
+          for (int m = 0; m < 4; m += 2) {
+            const int n = f.col(j + (m >> 1));
+            const float2 da = unpack_bf16(dv[m]), db = unpack_bf16(dv[m + 1]);
+#pragma unroll
+            for (int i = 0; i < DIN; ++i) {
+              const float2 w = ldg_bf16x2(w0b + i * H + n);
+              oa[i] += da.x * w.x + da.y * w.y;
+              ob[i] += db.x * w.x + db.y * w.y;
+            }
           }
         }
-      }
 #pragma unroll
-      for (int i = 0; i < DIN; ++i) {
-        oa[i] = quad_sum(oa[i]);
-        ob[i] = quad_sum(ob[i]);
-      }
-      if (f.q == 0 && pa < N) {
-        float* o = dx + ((size_t)b * N + pa) * DIN;
-        o[0] = oa[0];
-        o[1] = oa[1];
-        o[2] = oa[2];
-      }
-      if (f.q == 1 && pb < N) {
-        float* o = dx + ((size_t)b * N + pb) * DIN;
-        o[0] = ob[0];
-        o[1] = ob[1];
-        o[2] = ob[2];
+        for (int i = 0; i < DIN; ++i) {
+          oa[i] = quad_sum(oa[i]);
+          ob[i] = quad_sum(ob[i]);
+        }
+        if (f.q == 0 && pa < N) {
+          float* o = dx + ((size_t)b * N + pa) * DIN;
+          o[0] = oa[0];
+          o[1] = oa[1];
+          o[2] = oa[2];
+        }
+        if (f.q == 1 && pb < N) {
+          float* o = dx + ((size_t)b * N + pb) * DIN;
+          o[0] = ob[0];
+          o[1] = ob[1];
+          o[2] = ob[2];
+        }
       }
     }
     stores_done<0>(sa);  // no bulk store outlives the CTA's shared memory
@@ -434,10 +485,10 @@ constexpr size_t WGRAD_SMEM_BYTES =
     1024 + (size_t)WSTAGES * WSTAGE_BYTES + RED_BYTES + (2 * WSTAGES + 1) * 8;
 
 // The grads of all batch elements in one flat block of floats, in this order:
-// dws (B, L-1, H, H), dcs (B, L-1, H), dw0 (B, 3, H), dc0 (B, H),
+// dws (B, L-1, H, H), dcs (B, L-1, H), dw0 (B, din, H), dc0 (B, H),
 // dwf (B, H, 4), dbf (B, 4). The wrapper slices the same layout.
-__host__ __device__ inline size_t grads_size(int B, int L) {
-  return (size_t)B * ((L - 1) * (H * H + H) + DIN * H + H + H * COUT + COUT);
+__host__ __device__ inline size_t grads_size(int B, int L, int din) {
+  return (size_t)B * ((L - 1) * (H * H + H) + din * H + H + H * COUT + COUT);
 }
 
 // One work item's product C = A^T B over a segment of points (both operands
@@ -457,14 +508,15 @@ struct WgradJob {
 };
 
 // Work item t of a batch element (0 <= t < 2L): trunk grad l = t / 2, rows
-// 128 (t % 2) onwards, for t < 2(L-1); then dW0f and dWf.
-__device__ WgradJob make_job(int t, int b, int B, int L, int Np, const CUtensorMap* hmap,
-                             const CUtensorMap* pmap, const CUtensorMap* xmap,
-                             float* grads) {
+// 128 (t % 2) onwards, for t < 2(L-1); then dW0f and dWf. The points have
+// `din` features: the cotangent's first column in the xg rows.
+__device__ WgradJob make_job(int t, int b, int B, int L, int din, int Np,
+                             const CUtensorMap* hmap, const CUtensorMap* pmap,
+                             const CUtensorMap* xmap, float* grads) {
   float* dws = grads;
   float* dcs = dws + (size_t)B * (L - 1) * H * H;
   float* dw0 = dcs + (size_t)B * (L - 1) * H;
-  float* dc0 = dw0 + (size_t)B * DIN * H;
+  float* dc0 = dw0 + (size_t)B * din * H;
   float* dwf = dc0 + (size_t)B * H;
   float* dbf = dwf + (size_t)B * H * COUT;
   WgradJob j;
@@ -484,18 +536,18 @@ __device__ WgradJob make_job(int t, int b, int B, int L, int Np, const CUtensorM
     j.row0 = 128 * half;
     j.rows = 128;
     j.colsum = half == 0 ? dcs + ((size_t)b * (L - 1) + l) * H : nullptr;
-  } else if (t == 2 * (L - 1)) {  // dW0f[b] = x^T dpre_0 (rows 0-2); dc0[b]
+  } else if (t == 2 * (L - 1)) {  // dW0f[b] = x^T dpre_0 (rows 0 .. din-1); dc0[b]
     j.amap = xmap;
     j.bmap = pmap;
     j.a_row0 = b * Np;
     j.b_row0 = b * L * Np;
     j.a_col0 = 0;
     j.a_boxes = 1;
-    j.out = dw0 + (size_t)b * DIN * H;
+    j.out = dw0 + (size_t)b * din * H;
     j.row0 = 0;
-    j.rows = DIN;
+    j.rows = din;
     j.colsum = dc0 + (size_t)b * H;
-  } else {  // dWf[b]^T = gb^T h_{L-1} (rows 3-6); dbf[b] = the sums of gb
+  } else {  // dWf[b]^T = gb^T h_{L-1} (rows din .. din+3); dbf[b] = the sums of gb
     j.amap = xmap;
     j.bmap = hmap;
     j.a_row0 = b * Np;
@@ -504,11 +556,11 @@ __device__ WgradJob make_job(int t, int b, int B, int L, int Np, const CUtensorM
     j.a_boxes = 1;
     j.out = dwf + (size_t)b * H * COUT;
     j.transposed = true;
-    j.row0 = XG_G;
+    j.row0 = din;
     j.rows = COUT;
     j.colsum = dbf + (size_t)b * COUT;
     j.cs_from_a = true;
-    j.cs_col0 = XG_G;
+    j.cs_col0 = din;
     j.cs_cols = COUT;
   }
   return j;
@@ -530,7 +582,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 film_siren_bwd_wgrad(const __grid_constant__ CUtensorMap hmap,
                      const __grid_constant__ CUtensorMap pmap,
                      const __grid_constant__ CUtensorMap xmap, float* part, int B, int Np,
-                     int L, int seg, int segments) {
+                     int L, int din, int seg, int segments) {
   extern __shared__ unsigned char smem[];
   const uint32_t stages = (smem_addr(smem) + 1023u) & ~1023u;
   const uint32_t red = stages + WSTAGES * WSTAGE_BYTES;
@@ -549,7 +601,7 @@ film_siren_bwd_wgrad(const __grid_constant__ CUtensorMap hmap,
 
   const int per_b = 2 * L;
   const int items = segments * B * per_b;
-  const size_t block = grads_size(B, L);
+  const size_t block = grads_size(B, L, din);
   int stage = 0;
   uint32_t phase = 0;
   auto advance = [&]() {
@@ -564,7 +616,7 @@ film_siren_bwd_wgrad(const __grid_constant__ CUtensorMap hmap,
     if (threadIdx.x == PRODUCER_WG * 128) {
       for (int item = blockIdx.x; item < items; item += gridDim.x) {
         const int t = item % per_b, b = (item / per_b) % B, s = item / (per_b * B);
-        const WgradJob job = make_job(t, b, B, L, Np, &hmap, &pmap, &xmap, part);
+        const WgradJob job = make_job(t, b, B, L, din, Np, &hmap, &pmap, &xmap, part);
         const int p_end = min(Np, (s + 1) * seg);
         for (int p = s * seg; p < p_end; p += KP) {
           const uint32_t dst = stages + stage * WSTAGE_BYTES;
@@ -596,10 +648,12 @@ film_siren_bwd_wgrad(const __grid_constant__ CUtensorMap hmap,
 
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       const int t = item % per_b, b = (item / per_b) % B, s = item / (per_b * B);
-      const WgradJob job = make_job(t, b, B, L, Np, &hmap, &pmap, &xmap,
+      const WgradJob job = make_job(t, b, B, L, din, Np, &hmap, &pmap, &xmap,
                                     part + (size_t)s * block);
       const bool sums = job.colsum != nullptr;
-      const bool my_sums = sums && cg < (job.cs_from_a ? 1 : H / 8);
+      // the lanes of the column groups summed: all 32 of B's 256 columns, or
+      // the one 8-column group of A holding the cotangent's columns
+      const bool my_sums = sums && (job.cs_from_a ? cg == job.cs_col0 / 8 : cg < H / 8);
       // the thread's 16-byte group of a chunk's row 8 rg
       const uint32_t group = (job.cs_from_a ? 0 : (A_BOXES + (cg >> 3)) * BOX_BYTES) +
                              rg * 8 * 128;
@@ -714,22 +768,42 @@ __global__ void film_siren_bwd_reduce(const float* __restrict__ part,
   }
 }
 
+template <int DIN>
+int launch_sweep(const CUtensorMap& tmap, const CUtensorMap& wmap, const CUtensorMap& hstore,
+                 const CUtensorMap& pstore, const CUtensorMap& w0tmap, const CUtensorMap& w0map,
+                 const float* pts, const float* g, const void* w0f, const float* c,
+                 const void* wf, const void* pbuf, void* xg, float* dx, int B, int N, int L,
+                 int tiles, int grid, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(film_siren_bwd_sweep<DIN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SWEEP_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  film_siren_bwd_sweep<DIN><<<grid, THREADS, SWEEP_SMEM_BYTES, s>>>(
+      tmap, wmap, hstore, pstore, w0tmap, w0map, pts, g,
+      static_cast<const __nv_bfloat16*>(w0f), c, static_cast<const __nv_bfloat16*>(wf),
+      static_cast<const __nv_bfloat16*>(pbuf), static_cast<__nv_bfloat16*>(xg), dx, B, N, L,
+      tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches the kernels on `stream`; returns the first failing
 // cudaGetLastError() (0 = all launched). Scratch and outputs are allocated by
 // the caller: hbuf/pbuf (B, L, Np, H) bf16, xg (B, Np, 64) bf16 with Np = N
-// rounded up to 128; dx (B, N, 3) f32; `grads` one block of grads_size(B, L)
-// floats (layout above); `part` segments x grads_size(B, L) floats with
-// segments = ceil(Np / seg), seg a multiple of 64 (with one segment `part`
-// may be `grads`). wsf is (B, L-1, H_in, H_out) bf16 and wsft its transpose
-// per layer.
+// rounded up to 128; dx (B, N, din) f32; `grads` one block of
+// grads_size(B, L, din) floats (layout above); `part` segments x that many
+// floats with segments = ceil(Np / seg), seg a multiple of 64 (with one
+// segment `part` may be `grads`). wsf is (B, L-1, H_in, H_out) bf16 and wsft
+// its transpose per layer; w0f (B, din, H) bf16 and, at din 32, w0ft its
+// transpose (B, H, 32) (at din 3 unused). din is 3 or 32.
 extern "C" int film_siren_bwd(const float* pts, const float* g, const void* w0f,
-                              const float* c, const void* wsf, const void* wsft,
-                              const void* wf, void* hbuf, void* pbuf, void* xg, float* dx,
-                              float* part, float* grads, int B, int N, int L, int seg,
-                              void* stream) {
-  if (B <= 0 || N <= 0 || L < 2 || L > MAX_LAYERS || seg <= 0 || seg % KP)
+                              const void* w0ft, const float* c, const void* wsf,
+                              const void* wsft, const void* wf, void* hbuf, void* pbuf,
+                              void* xg, float* dx, float* part, float* grads, int B, int N,
+                              int L, int din, int seg, void* stream) {
+  if (B <= 0 || N <= 0 || L < 2 || L > MAX_LAYERS || seg <= 0 || seg % KP ||
+      (din != 3 && din != 32))
     return (int)cudaErrorInvalidValue;
   const int tiles = (N + TILE - 1) / TILE;
   const long long Np = (long long)tiles * TILE;
@@ -737,7 +811,7 @@ extern "C" int film_siren_bwd(const float* pts, const float* g, const void* w0f,
   if ((long long)B * L * Np > 0x7fffffff || segments * B * 2 * L > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CUtensorMap tmap, wmap, hmap, pmap, xmap, hstore, pstore;
+  CUtensorMap tmap, wmap, hmap, pmap, xmap, hstore, pstore, w0tmap, w0map;
   const uint64_t rows = (uint64_t)B * L * Np;
   int e = weight_map(&tmap, wsft, (uint64_t)B * (L - 1) * H, H);
   if (!e) e = weight_map(&wmap, wsf, (uint64_t)B * (L - 1) * H, H);
@@ -746,27 +820,26 @@ extern "C" int film_siren_bwd(const float* pts, const float* g, const void* w0f,
   if (!e) e = tensor_map(&hmap, hbuf, rows, H, KP);
   if (!e) e = tensor_map(&pmap, pbuf, rows, H, KP);
   if (!e) e = tensor_map(&xmap, xg, (uint64_t)B * Np, XG_COLS, KP);
+  if (!e && din == 32) e = weight_map(&w0tmap, w0ft, (uint64_t)B * H, din);
+  if (!e && din == 32) e = tensor_map(&w0map, w0f, (uint64_t)B * din, H, din);
+  if (din != 32) w0tmap = w0map = tmap;  // unused copies
   int grid = 0, wgrid = 0;
   if (!e) e = persistent_grid(B * tiles, &grid);
   if (!e) e = persistent_grid((int)(segments * B * 2 * L), &wgrid);
   if (e) return e;
+  e = din == 32 ? launch_sweep<32>(tmap, wmap, hstore, pstore, w0tmap, w0map, pts, g, w0f, c,
+                                   wf, pbuf, xg, dx, B, N, L, tiles, grid, s)
+                : launch_sweep<3>(tmap, wmap, hstore, pstore, w0tmap, w0map, pts, g, w0f, c, wf,
+                                  pbuf, xg, dx, B, N, L, tiles, grid, s);
+  if (e) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      film_siren_bwd_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SWEEP_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  film_siren_bwd_sweep<<<grid, THREADS, SWEEP_SMEM_BYTES, s>>>(
-      tmap, wmap, hstore, pstore, pts, g, static_cast<const __nv_bfloat16*>(w0f), c,
-      static_cast<const __nv_bfloat16*>(wf), static_cast<const __nv_bfloat16*>(pbuf),
-      static_cast<__nv_bfloat16*>(xg), dx, B, N, L, tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(film_siren_bwd_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)WGRAD_SMEM_BYTES);
+      film_siren_bwd_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WGRAD_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   film_siren_bwd_wgrad<<<wgrid, THREADS, WGRAD_SMEM_BYTES, s>>>(
-      hmap, pmap, xmap, segments == 1 ? grads : part, B, (int)Np, L, seg, (int)segments);
+      hmap, pmap, xmap, segments == 1 ? grads : part, B, (int)Np, L, din, seg, (int)segments);
   err = cudaGetLastError();
   if (err != cudaSuccess || segments == 1) return (int)err;
-  const size_t size = grads_size(B, L);
+  const size_t size = grads_size(B, L, din);
   const size_t want = (size + 255) / 256;
   const unsigned blocks = (unsigned)(want < 132 * 8 ? want : 132 * 8);
   film_siren_bwd_reduce<<<blocks, 256, 0, s>>>(part, grads, size, (int)segments);

@@ -97,46 +97,7 @@ film_siren_fwd_kernel(const __grid_constant__ CUtensorMap wmap,
         }
       };
 
-      if constexpr (DIN == 3) {
-        // layer 0 on the FMA units (x . W0f; the epilogue adds c_0)
-        float xa[3], xb[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          xa[i] = pa < N ? bf16_round(pts[((size_t)b * N + pa) * 3 + i]) : 0.f;
-          xb[i] = pb < N ? bf16_round(pts[((size_t)b * N + pb) * 3 + i]) : 0.f;
-        }
-        const __nv_bfloat16* w0b = w0 + (size_t)b * 3 * H;
-#pragma unroll
-        for (int j = 0; j < ACC / 4; ++j) {
-          const int n = f.col(j);
-          const float2 w_0 = ldg_bf16x2(w0b + n);
-          const float2 w_1 = ldg_bf16x2(w0b + H + n);
-          const float2 w_2 = ldg_bf16x2(w0b + 2 * H + n);
-          acc[4 * j] = xa[0] * w_0.x + xa[1] * w_1.x + xa[2] * w_2.x;
-          acc[4 * j + 1] = xa[0] * w_0.y + xa[1] * w_1.y + xa[2] * w_2.y;
-          acc[4 * j + 2] = xb[0] * w_0.x + xb[1] * w_1.x + xb[2] * w_2.x;
-          acc[4 * j + 3] = xb[0] * w_0.y + xb[1] * w_1.y + xb[2] * w_2.y;
-        }
-      } else {
-        // layer 0 as two k-steps: x as the A fragments of k 0..15 and 16..31
-        uint32_t xr[8];
-        const float* xa = pts + ((size_t)b * N + pa) * DIN;
-        const float* xb = pts + ((size_t)b * N + pb) * DIN;
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int k = 16 * kk + 8 * half + 2 * f.q;
-            const float2 va = pa < N ? *reinterpret_cast<const float2*>(xa + k)
-                                     : make_float2(0.f, 0.f);
-            const float2 vb = pb < N ? *reinterpret_cast<const float2*>(xb + k)
-                                     : make_float2(0.f, 0.f);
-            xr[4 * kk + 2 * half] = pack_bf16(va.x, va.y);
-            xr[4 * kk + 2 * half + 1] = pack_bf16(vb.x, vb.y);
-          }
-        }
-        layer_mma<1, 2>(ring, f.wg, acc, xr);
-      }
+      layer0_products<DIN>(ring, f, acc, pts, w0, b, N, pa, pb);
 
       // each layer's epilogue, then the next layer's products: one copy of
       // each in the code (unrolled, a kernel larger than the instruction

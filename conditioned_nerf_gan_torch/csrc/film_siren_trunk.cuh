@@ -33,8 +33,9 @@
 //     slowed K1. Only the producer's waits trap after a poll limit;
 //   * a persistent grid: one CTA per SM walks over (batch element, tile)
 //     items.
-// The kernels define the layers around the trunk: layer 0 (FMA units at 3
-// input features, a 2-k-step product at 32), the head, and the VJP's sweep.
+// Layer 0 is here too (FMA units at 3 input features, a 2-k-step product at
+// 32: `layer0_products`, shared by K1 and the sweep); the kernels define the
+// head and the VJP's sweep around the trunk.
 
 #pragma once
 
@@ -196,9 +197,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keeps the compiler from moving accumulator accesses across the async MMA
-__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
+template <int NACC>
+__device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // Descriptor of a K-major bf16 operand in the 128-byte swizzle: rows of 64
@@ -280,6 +282,22 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[ACC], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(MN));
 }
 
+// d (64 x 32, fp32) (+)= a (64 x 16) . b (16 x 32), both bf16 in shared
+// memory, K-major; scale_d 0 overwrites d. A thread holds D elements as the
+// m64n256 layout does, for units 0..31 (4 per 8-unit group j).
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ---- the ring ----------------------------------------------------------------
 
 // NS stages of one chunk each
@@ -341,6 +359,21 @@ __device__ __forceinline__ void produce(Ring<NS>& r, const CUtensorMap* map, int
   r.advance();
 }
 
+// Producer: rows c1 .. c1 + rows - 1 of `map` (boxes of 64 columns x `rows`
+// rows), all `blocks` of their 64-column blocks, into the next stage one
+// after another: a K-major operand of `rows` N-rows and K = 64 x blocks.
+template <int NS>
+__device__ __forceinline__ void produce_blocks(Ring<NS>& r, const CUtensorMap* map, int c1,
+                                               int rows, int blocks) {
+  const uint32_t block_bytes = (uint32_t)rows * 128;
+  mbar_wait_or_trap(r.empty_bar(r.stage), r.phase ^ 1u);
+  mbar_expect_tx(r.full_bar(r.stage), blocks * block_bytes);
+  for (int k = 0; k < blocks; ++k)
+    tma_load_2d(r.stages + r.stage * CHUNK_BYTES + k * block_bytes, map, KC * k, c1,
+                r.full_bar(r.stage));
+  r.advance();
+}
+
 // Consumer: acc = A . (the next NCHUNK chunks, KSTEPS k-steps of each), in
 // this warpgroup's turn (wg 0 or 1). `issue(acc, s, desc_b, scale_d)` issues
 // the product of k-step s (kc * CHUNKS_PER_LAYER + kk) against the chunk's
@@ -348,8 +381,8 @@ __device__ __forceinline__ void produce(Ring<NS>& r, const CUtensorMap* map, int
 // The turn passes to the other warpgroup once the last chunk's products are
 // issued or, with fewer stages than chunks, once every stage has been: the
 // next chunk then waits for the other warpgroup to release a stage.
-template <int NCHUNK, int KSTEPS, int NS, typename Issue>
-__device__ __forceinline__ void layer_products(Ring<NS>& r, int wg, float (&acc)[ACC],
+template <int NCHUNK, int KSTEPS, int NS, int NACC, typename Issue>
+__device__ __forceinline__ void layer_products(Ring<NS>& r, int wg, float (&acc)[NACC],
                                                const Issue& issue) {
   constexpr int kPass = (NS < NCHUNK ? NS : NCHUNK) - 1;
   const bool lane0 = (threadIdx.x & 31) == 0;
@@ -432,6 +465,58 @@ struct Frag {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Layer 0's products into acc, x . W0f (the epilogue adds c_0), for points pa
+// and pb of batch element b (zeros past N); pts (B, N, DIN) f32. At DIN 3
+// (K = 3) on the FMA units, w0 = W0f (B, 3, H) bf16 read from device memory;
+// at DIN 32 two wgmma k-steps with x as register A fragments (k 0..15 and
+// 16..31) and W0f^T as the ring's next chunk (its columns past 32 read as
+// zeros from the TMA, unused).
+template <int DIN, int NS>
+__device__ __forceinline__ void layer0_products(Ring<NS>& ring, const Frag& f, float (&acc)[ACC],
+                                                const float* __restrict__ pts,
+                                                const __nv_bfloat16* __restrict__ w0, int b,
+                                                int N, int pa, int pb) {
+  static_assert(DIN == 3 || DIN == 32, "DIN is 3 or 32");
+  if constexpr (DIN == 3) {
+    float xa[3], xb[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      xa[i] = pa < N ? bf16_round(pts[((size_t)b * N + pa) * 3 + i]) : 0.f;
+      xb[i] = pb < N ? bf16_round(pts[((size_t)b * N + pb) * 3 + i]) : 0.f;
+    }
+    const __nv_bfloat16* w0b = w0 + (size_t)b * 3 * H;
+#pragma unroll
+    for (int j = 0; j < ACC / 4; ++j) {
+      const int n = f.col(j);
+      const float2 w_0 = ldg_bf16x2(w0b + n);
+      const float2 w_1 = ldg_bf16x2(w0b + H + n);
+      const float2 w_2 = ldg_bf16x2(w0b + 2 * H + n);
+      acc[4 * j] = xa[0] * w_0.x + xa[1] * w_1.x + xa[2] * w_2.x;
+      acc[4 * j + 1] = xa[0] * w_0.y + xa[1] * w_1.y + xa[2] * w_2.y;
+      acc[4 * j + 2] = xb[0] * w_0.x + xb[1] * w_1.x + xb[2] * w_2.x;
+      acc[4 * j + 3] = xb[0] * w_0.y + xb[1] * w_1.y + xb[2] * w_2.y;
+    }
+  } else {
+    uint32_t xr[8];
+    const float* xa = pts + ((size_t)b * N + pa) * DIN;
+    const float* xb = pts + ((size_t)b * N + pb) * DIN;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = 16 * kk + 8 * half + 2 * f.q;
+        const float2 va = pa < N ? *reinterpret_cast<const float2*>(xa + k)
+                                 : make_float2(0.f, 0.f);
+        const float2 vb = pb < N ? *reinterpret_cast<const float2*>(xb + k)
+                                 : make_float2(0.f, 0.f);
+        xr[4 * kk + 2 * half] = pack_bf16(va.x, va.y);
+        xr[4 * kk + 2 * half + 1] = pack_bf16(vb.x, vb.y);
+      }
+    }
+    layer_mma<1, 2>(ring, f.wg, acc, xr);
+  }
 }
 
 // ---- host ----------------------------------------------------------------------

@@ -10,22 +10,29 @@ convention: coords[..., 0] = x -> W, 1 = y -> H, 2 = z -> D.
     (`_unnormalize`, `_anchor_fractions` with the anchor clamped to
     size - 2, the 8 corners combined in `_lerp_blocks`' order). What the
     wrapper takes for CPU tensors, and the comparator for the kernel.
+  * `border_trilerp_vjp_reference`: its VJP in plain torch: dcoords as the
+    JAX `_expanded_bwd` computes them, dV as an fp32 `index_add_` of the
+    weighted corner rows. What the backward takes for CPU tensors, and the
+    comparator for the backward kernel.
   * `trilinear_point_features`: the wrapper. On CUDA tensors it launches
-    `csrc/trilinear_fwd.cu` (sm_90a) or raises; it never falls back.
-    `trilinear_point_features.launches` counts kernel launches.
+    `csrc/trilinear_fwd.cu` (sm_90a) or raises; it never falls back. When
+    an input needs grad it goes through `TrilinearSample`, whose backward
+    launches `csrc/trilinear_bwd.cu`. `trilinear_point_features.launches`
+    counts forward launches, `ops.kernels.trilinear.trilinear_bwd.launches`
+    backward ones. CPU tensors take the plain version under plain autograd.
 
 The JAX package's two gather strategies (the (z, y)-expanded slab and the
 (2, 2, 2, C) block gather) and its one-hot-matmul VJP work around the TPU's
-gather segments and its lack of atomic scatter; neither is ported. The
-zeros-padding and align_corners=True variant (`EmbeddingPiGAN`, ROADMAP
-A13) and the backward (voxel training, ROADMAP A12) are not ported yet.
+gather segments and its lack of atomic scatter; none is ported: the port's
+dV is a scatter. The zeros-padding and align_corners=True variant
+(`EmbeddingPiGAN`, ROADMAP A13) is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels.trilinear import trilinear_fwd
+from .kernels.trilinear import trilinear_bwd, trilinear_fwd
 
 
 def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
@@ -45,18 +52,33 @@ def _lerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return a * (1 - t) + b * t
 
 
+def _corner_rows(volume: torch.Tensor, coords: torch.Tensor):
+    """Per axis (x, y, z) the unnormalized position, the anchor and the
+    fraction (B, N); and the flat row (B, N) of each corner (dz, dy, dx) of a
+    (B * D * H * W, C) view of the volume."""
+    B, D, H, W, _ = volume.shape
+    axes = []
+    for k, size in enumerate((W, H, D)):
+        f = _unnormalize(coords[..., k], size)
+        axes.append((f, *_anchor_fractions(f, size)))
+    (_, ix, _), (_, iy, _), (_, iz, _) = axes
+    base = ((torch.arange(B, device=volume.device)[:, None] * D + iz) * H + iy) * W + ix
+
+    def row(dz, dy, dx):
+        return base + (dz * H + dy) * W + dx
+
+    return axes, row
+
+
 def border_trilerp_reference(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Plain torch border-mode trilerp: volume (B, D, H, W, C), coords
     (B, N, 3) normalized -> (B, N, C), the JAX `_border_trilerp` forward."""
-    B, D, H, W, C = volume.shape
-    ix, tx = _anchor_fractions(_unnormalize(coords[..., 0], W), W)
-    iy, ty = _anchor_fractions(_unnormalize(coords[..., 1], H), H)
-    iz, tz = _anchor_fractions(_unnormalize(coords[..., 2], D), D)
-    flat = volume.reshape(B, D * H * W, C)
-    rows = torch.arange(B, device=volume.device)[:, None]
+    C = volume.shape[-1]
+    ((_, _, tx), (_, _, ty), (_, _, tz)), row = _corner_rows(volume, coords)
+    flat = volume.reshape(-1, C)
 
     def corner(dz, dy, dx):
-        return flat[rows, ((iz + dz) * H + iy + dy) * W + ix + dx]  # (B, N, C)
+        return flat[row(dz, dy, dx)]  # (B, N, C)
 
     tx, ty, tz = tx[..., None], ty[..., None], tz[..., None]
     # x first, for each (z, y) in the order z0y0, z0y1, z1y0, z1y1; then y; then z
@@ -65,6 +87,90 @@ def border_trilerp_reference(volume: torch.Tensor, coords: torch.Tensor) -> torc
     g10 = _lerp(corner(1, 0, 0), corner(1, 0, 1), tx)
     g11 = _lerp(corner(1, 1, 0), corner(1, 1, 1), tx)
     return _lerp(_lerp(g00, g01, ty), _lerp(g10, g11, ty), tz)
+
+
+def corner_contributions(volume: torch.Tensor, coords: torch.Tensor, g: torch.Tensor):
+    """The scatter of the forward's VJP: (rows (8 B N,), parts (8 B N, C)),
+    corner (dz, dy, dx) of every point as a row of a (B * D * H * W, C)
+    view of dV and its contribution ((g (1 - tz)) (1 - ty)) (1 - tx) and
+    likewise, each product rounded as torch autograd of the forward rounds
+    it; dV is their sum."""
+    C = volume.shape[-1]
+    ((_, _, tx), (_, _, ty), (_, _, tz)), row = _corner_rows(volume, coords)
+    tx, ty, tz = tx[..., None], ty[..., None], tz[..., None]
+    wx, wy, wz = (1 - tx, tx), (1 - ty, ty), (1 - tz, tz)
+    rows, parts = [], []
+    for dz in (0, 1):
+        gz = g * wz[dz]
+        for dy in (0, 1):
+            gzy = gz * wy[dy]
+            for dx in (0, 1):
+                rows.append(row(dz, dy, dx).reshape(-1))
+                parts.append((gzy * wx[dx]).reshape(-1, C))
+    return torch.cat(rows), torch.cat(parts)
+
+
+def border_trilerp_vjp_reference(volume: torch.Tensor, coords: torch.Tensor,
+                                 g: torch.Tensor, need_coords: bool = True):
+    """VJP of `border_trilerp_reference` -> (dvolume (B, D, H, W, C), dcoords
+    (B, N, 3) or None).
+
+    dvolume: `corner_contributions` summed into zeros by an fp32
+    `index_add_`. dcoords: the JAX `_expanded_bwd`
+    cotangents of the fractions from the re-gathered corners (d_tx from the
+    x-differences weighted by u = [(1-ty)(1-tz), ty(1-tz), (1-ty)tz, ty tz];
+    d_ty, d_tz from the x-lerps), passed where the unclamped position lies
+    in [0, size - 1] (the inclusive clip) and scaled by size / 2 (the
+    unnormalization), each summed over channels last.
+    """
+    B, D, H, W, C = volume.shape
+    rows, parts = corner_contributions(volume, coords, g)
+    dvol = torch.zeros(B * D * H * W, C, dtype=volume.dtype, device=volume.device)
+    dvol.index_add_(0, rows, parts)
+    dvol = dvol.view(B, D, H, W, C)
+    if not need_coords:
+        return dvol, None
+
+    ((fx, _, tx), (fy, _, ty), (fz, _, tz)), row = _corner_rows(volume, coords)
+    tx, ty, tz = tx[..., None], ty[..., None], tz[..., None]
+    flat = volume.reshape(-1, C)
+    # (x0, x1) corners of each (z, y) pair in the order z0y0, z0y1, z1y0, z1y1
+    pairs = [(flat[row(dz, dy, 0)], flat[row(dz, dy, 1)]) for dz in (0, 1) for dy in (0, 1)]
+    u = ((1 - ty) * (1 - tz), ty * (1 - tz), (1 - ty) * tz, ty * tz)
+    ex = sum((x1 - x0) * uk for (x0, x1), uk in zip(pairs, u))
+    gx = [_lerp(x0, x1, tx) for x0, x1 in pairs]
+    ey = (1 - tz) * (gx[1] - gx[0]) + tz * (gx[3] - gx[2])
+    ez = (gx[2] * (1 - ty) + gx[3] * ty) - (gx[0] * (1 - ty) + gx[1] * ty)
+    dcoords = []
+    for e, f, size in ((ex, fx, W), (ey, fy, H), (ez, fz, D)):
+        inside = (f >= 0) & (f <= size - 1)
+        dcoords.append(torch.where(inside, (e * g).sum(-1), 0.0) * (size / 2.0))
+    return dvol, torch.stack(dcoords, dim=-1)
+
+
+class TrilinearSample(torch.autograd.Function):
+    """The kernels as one differentiable op: the forward launches the
+    trilinear kernel and saves the volume and coordinates; the backward
+    launches the backward kernel for what `needs_input_grad` asks (on the
+    main path dV alone: its points never need grad)."""
+
+    @staticmethod
+    def forward(ctx, volume, coords):
+        ctx.save_for_backward(volume, coords)
+        return _forward_kernel(volume, coords)
+
+    @staticmethod
+    def backward(ctx, g):
+        volume, coords = ctx.saved_tensors
+        need_volume, need_coords = ctx.needs_input_grad
+        return trilinear_bwd(volume, coords, g, need_volume=need_volume,
+                             need_coords=need_coords)
+
+
+def _forward_kernel(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    out = trilinear_fwd(volume, coords)
+    trilinear_point_features.launches += 1
+    return out
 
 
 def trilinear_point_features(volume: torch.Tensor, coords: torch.Tensor, *,
@@ -76,7 +182,8 @@ def trilinear_point_features(volume: torch.Tensor, coords: torch.Tensor, *,
     [-1, 1] in the grid convention (x -> W, y -> H, z -> D) -> (B, N, C).
     Border padding with align_corners=False, sides >= 2: the voxel family's
     lookup. CUDA tensors go to the hand-written kernel (fp32, C % 4 == 0,
-    contiguous); CPU tensors take `border_trilerp_reference`.
+    contiguous), through `TrilinearSample` when an input needs grad; CPU
+    tensors take `border_trilerp_reference` under plain autograd.
     """
     if padding_mode != "border" or align_corners:
         raise NotImplementedError(
@@ -90,9 +197,9 @@ def trilinear_point_features(volume: torch.Tensor, coords: torch.Tensor, *,
         return border_trilerp_reference(volume, coords)
     if volume.device.type != "cuda":
         raise ValueError(f"trilinear_point_features: no kernel for device {volume.device}")
-    out = trilinear_fwd(volume, coords)
-    trilinear_point_features.launches += 1
-    return out
+    if torch.is_grad_enabled() and (volume.requires_grad or coords.requires_grad):
+        return TrilinearSample.apply(volume, coords)
+    return _forward_kernel(volume, coords)
 
 
 trilinear_point_features.launches = 0

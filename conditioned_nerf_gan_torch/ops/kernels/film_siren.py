@@ -48,9 +48,9 @@ _S3 = -1.6565644419e-01
 _S5 = 7.9559223702e-03
 _S7 = -1.4495299408e-04
 
-# shapes the CUDA kernels are compiled for: csrc/film_siren_fwd.cu has an
-# instance for each input width (xyz points; sampled U-Net features) and
-# takes 2 to 8 layers; csrc/film_siren_bwd.cu takes xyz points only
+# shapes the CUDA kernels are compiled for: csrc/film_siren_fwd.cu and
+# csrc/film_siren_bwd.cu each have an instance for each input width (xyz
+# points; sampled U-Net features) and take 2 to 8 layers
 KERNEL_HIDDEN = 256
 KERNEL_IN = 3
 KERNEL_INS = (3, 32)
@@ -235,10 +235,8 @@ def _check_kernel_inputs(points, freq, phase, w0, b0, ws, bs, wf, bf,
             raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
     B, N, din = points.shape
     if din not in widths:
-        later = (" (Din 32 comes with voxel training, ROADMAP A12)"
-                 if din == 32 and name == "film_siren_mlp_bwd" else "")
         raise ValueError(f"{name}: points have {din} features, the kernel takes "
-                         f"{' or '.join(map(str, widths))}{later}")
+                         f"{' or '.join(map(str, widths))}")
     L = 1 + ws.shape[0]
     H = w0.shape[1]
     expected = dict(points=(B, N, din), freq=(B, L * H), phase=(B, L * H),
@@ -353,7 +351,7 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
     and the bf16 h_l / dpre_l, then the folded weight grads summed over
     points in a fixed order (deterministic), then `unfold_film_grads`. The
     cotangent g (B, N, 4) may be any strided view; it is made contiguous
-    here. The kernel takes xyz points (Din 3) only. CPU tensors take
+    here. Points of 3 or 32 features, 2 to 8 layers of 256. CPU tensors take
     `film_siren_mlp_folded_vjp`. `film_siren_mlp_bwd.launches` counts
     kernel launches.
     """
@@ -362,17 +360,20 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
         return film_siren_mlp_folded_vjp(*args, g)
     if points.device.type != "cuda":
         raise ValueError(f"film_siren_mlp_bwd: no kernel for device {points.device}")
-    _check_kernel_inputs(*args, name="film_siren_mlp_bwd", widths=(KERNEL_IN,))
-    B, N, _ = points.shape
+    _check_kernel_inputs(*args, name="film_siren_mlp_bwd")
+    B, N, din = points.shape
     if g.device != points.device or g.dtype != torch.float32:
         raise TypeError(f"film_siren_mlp_bwd: g must be float32 on {points.device}, "
                         f"got {g.dtype} on {g.device}")
     if tuple(g.shape) != (B, N, KERNEL_OUT):
         raise ValueError(f"film_siren_mlp_bwd: g has shape {tuple(g.shape)}, "
                          f"the kernel takes {(B, N, KERNEL_OUT)}")
-    fn = _c_function("film_siren_bwd", "film_siren_bwd", 13, 4)
+    fn = _c_function("film_siren_bwd", "film_siren_bwd", 14, 5)
     w0f, c, wsf = _fold_for_kernel(freq, phase, w0, b0, ws, bs)
-    wsf_t = wsf.transpose(-1, -2).contiguous()  # the recompute's K-major weights
+    # the recompute's K-major weights (at Din 32 layer 0's too; dX reads
+    # W0f itself)
+    wsf_t = wsf.transpose(-1, -2).contiguous()
+    w0f_t = w0f.transpose(-1, -2).contiguous() if din != KERNEL_IN else w0f
     wf16 = wf.to(torch.bfloat16).contiguous()
     g = g.contiguous()
     L = c.shape[1]
@@ -390,19 +391,19 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
     hbuf = torch.empty(B, L, n_pad, H, **bf16)
     pbuf = torch.empty(B, L, n_pad, H, **bf16)
     xg = torch.empty(B, n_pad, BWD_XG_COLS, **bf16)
-    dpoints = torch.empty(B, N, KERNEL_IN, dtype=torch.float32, device=dev)
+    dpoints = torch.empty(B, N, din, dtype=torch.float32, device=dev)
     # the folded grads of every batch element in one block, in the kernel's
     # order; with several segments, one partial block per segment
-    shapes = ((B, L - 1, H, H), (B, L - 1, H), (B, KERNEL_IN, H), (B, H), (B, H, C),
-              (B, C))
+    shapes = ((B, L - 1, H, H), (B, L - 1, H), (B, din, H), (B, H), (B, H, C), (B, C))
     sizes = [math.prod(shape) for shape in shapes]
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     part = (grads if n_seg == 1 else
             torch.empty(n_seg, sum(sizes), dtype=torch.float32, device=dev))
-    ptrs = (points, g, w0f, c, wsf, wsf_t, wf16, hbuf, pbuf, xg, dpoints, part, grads)
+    ptrs = (points, g, w0f, w0f_t, c, wsf, wsf_t, wf16, hbuf, pbuf, xg, dpoints, part,
+            grads)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in ptrs), B, N, L, seg, stream)
+        err = fn(*(t.data_ptr() for t in ptrs), B, N, L, din, seg, stream)
     if err != 0:
         raise RuntimeError(f"film_siren_bwd launch failed: cudaError {err}")
     film_siren_mlp_bwd.launches += 1

@@ -1,12 +1,16 @@
-"""Border-mode trilinear sampling: the CUDA kernel's launcher.
+"""Border-mode trilinear sampling: the CUDA kernels' launchers.
 
 `csrc/trilinear_fwd.cu` (sm_90a) is the counterpart of the JAX package's
 trilinear-gather kernel (scripts/bench_pallas_gather.py), the forward of
-`ops/grid_sample.py::_border_trilerp` there. `trilinear_fwd` checks what it
-is handed, launches the kernel and raises on anything the kernel does not
-take; it never falls back. The caller, `ops.grid_sample.
-trilinear_point_features`, holds the plain version (`border_trilerp_reference`)
-and counts launches.
+`ops/grid_sample.py::_border_trilerp` there; `csrc/trilinear_bwd.cu` is the
+counterpart of that op's custom VJP (`_expanded_bwd`), a scatter with fp32
+atomics where the TPU formed one-hot matmuls. Both share
+`csrc/trilinear_common.cuh`. `trilinear_fwd` and `trilinear_bwd` check what
+they are handed, launch and raise on anything the kernels do not take; they
+never fall back. The caller, `ops.grid_sample`, holds the plain versions
+(`border_trilerp_reference`, `border_trilerp_vjp_reference`), the autograd
+Function and the forward's launch count; `trilinear_bwd.launches` counts the
+backward's launches.
 """
 
 from __future__ import annotations
@@ -15,10 +19,9 @@ import torch
 
 from .film_siren import _c_function
 
-
-def _check_kernel_inputs(volume: torch.Tensor, coords: torch.Tensor) -> None:
-    name = "trilinear_point_features"
-    for arg, t in (("volume", volume), ("coords", coords)):
+def _check_kernel_inputs(volume: torch.Tensor, coords: torch.Tensor,
+                         name: str = "trilinear_point_features", **others) -> None:
+    for arg, t in (("volume", volume), ("coords", coords), *others.items()):
         if t.device.type != "cuda" or t.device != volume.device:
             raise ValueError(f"{name}: {arg} is on {t.device}, the kernel takes "
                              f"CUDA tensors on one card")
@@ -43,8 +46,9 @@ def _check_kernel_inputs(volume: torch.Tensor, coords: torch.Tensor) -> None:
 
 
 def trilinear_fwd(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel: volume (B, D, H, W, C) and normalized coords
-    (B, N, 3), fp32 on one card -> (B, N, C) fp32."""
+    """Launch the forward kernel: volume (B, D, H, W, C) and normalized
+    coords (B, N, 3), fp32 on one card -> (B, N, C) fp32. At C 32, with one
+    volume under 2^31 floats, the kernel takes its short index path."""
     _check_kernel_inputs(volume, coords)
     fn = _c_function("trilinear_fwd", "trilinear_fwd", 3, 6)
     B, D, H, W, C = volume.shape
@@ -57,3 +61,52 @@ def trilinear_fwd(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"trilinear_fwd launch failed: cudaError {err}")
     return out
+
+
+def trilinear_bwd(volume: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+                  need_volume: bool = True, need_coords: bool = False):
+    """VJP of the sampling -> (dvolume (B, D, H, W, C) or None, dcoords
+    (B, N, 3) or None), each only where asked.
+
+    CUDA tensors go to the backward kernel: dvolume is a zeroed fp32 buffer
+    the kernel adds every weighted corner row into with atomics, dcoords the
+    JAX fraction cotangents. The cotangent g (B, N, C) may be any strided
+    view; it is made contiguous here. CPU tensors take
+    `border_trilerp_vjp_reference`. `trilinear_bwd.launches` counts kernel
+    launches.
+    """
+    if volume.device.type == "cpu":
+        from ..grid_sample import border_trilerp_vjp_reference
+
+        dvol, dcoords = border_trilerp_vjp_reference(volume, coords, g, need_coords)
+        return (dvol if need_volume else None), dcoords
+    g = g.contiguous()
+    _check_kernel_inputs(volume, coords, name="trilinear_bwd", g=g)
+    B, D, H, W, C = volume.shape
+    N = coords.shape[1]
+    if tuple(g.shape) != (B, N, C):
+        raise ValueError(f"trilinear_bwd: g has shape {tuple(g.shape)}, the kernel "
+                         f"takes {(B, N, C)}")
+    quads = C // 4
+    if need_coords and (quads > 32 or quads & (quads - 1)):
+        raise ValueError(f"trilinear_bwd: dcoords need C / 4 a power of two <= 32, "
+                         f"got C={C}")
+    if not (need_volume or need_coords):
+        return None, None
+    dev = volume.device
+    dvol = torch.zeros_like(volume) if need_volume else None
+    dcoords = torch.empty(B, N, 3, dtype=torch.float32, device=dev) if need_coords else None
+    fn = _c_function("trilinear_bwd", "trilinear_bwd", 5, 6)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(volume.data_ptr(), coords.data_ptr(), g.data_ptr(),
+                 None if dvol is None else dvol.data_ptr(),
+                 None if dcoords is None else dcoords.data_ptr(),
+                 B, N, D, H, W, C, stream)
+    if err != 0:
+        raise RuntimeError(f"trilinear_bwd launch failed: cudaError {err}")
+    trilinear_bwd.launches += 1
+    return dvol, dcoords
+
+
+trilinear_bwd.launches = 0

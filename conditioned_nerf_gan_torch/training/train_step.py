@@ -5,8 +5,8 @@ conditioned_nerf_gan_tpu/training/train_step.py:155-458).
     plus the R1 penalty on the real images (a double backward through D);
     global-norm clip; Adam.
   * G step: the encoder's gradients flow through the render; softplus G loss
-    + photometric MSE + weighted foreground depth MSE + the latent-norm
-    regularizer. With `batch_split` k the per-split means are summed (their
+    (with the discriminator on) + photometric MSE + weighted foreground depth
+    MSE + the latent-norm regularizer. With `batch_split` k the per-split means are summed (their
     gradients accumulate), then rescaled by grad_accum_scale / k; one clip +
     Adam step for G and for E.
   * Three optimizer chains, each: clip its own global norm (optax
@@ -14,7 +14,10 @@ conditioned_nerf_gan_tpu/training/train_step.py:155-458).
     eps 1e-8; the mapping network is its own parameter group at
     `mapping_lr_mult` x lr.
 
-Modules and optimizers update in place. Randomness comes from one explicit
+The encoder is the PointNet of a point cloud (`load_pcl`) or the 3-D U-Net
+of a voxel grid (the voxel family, `dg`), whose (feature volume, global
+feature) pair conditions the render; its grads come back through the
+trilinear sampler. Modules and optimizers update in place. Randomness comes from one explicit
 `torch.Generator` on the batch's device (None: deterministic renders, which
 needs `random_gen_img` and `noise_weight` off). Not ported: the chained
 multi-step dispatch (a TPU dispatch workaround, ROADMAP A8) and the
@@ -169,20 +172,26 @@ def create_train_state(generator: nn.Module, encoder: nn.Module,
 
 def make_train_step(config: TrainStepConfig) -> Callable:
     """Build `train_step(state, batch, generator, alpha, nerf_noise) ->
-    (state, metrics)`: one D step then one G/E step. `batch` holds tensors
-    on the models' device: img (B, S, S, 3) in [-1, 1], cam2world (B, 4, 4),
-    pcl (B, T, 6) and, with the depth loss, depth (B, S, S)."""
-    if config.load_voxel or not config.load_pcl:
-        raise NotImplementedError("voxel-conditioned training is ROADMAP A12")
+    (state, metrics)`: one D step (with the discriminator on) then one G/E
+    step. `batch` holds tensors on the models' device: img (B, S, S, 3) in
+    [-1, 1], cam2world (B, 4, 4), the conditioning (pcl (B, T, 6), or with
+    `load_voxel` and not `load_pcl` voxel (B, R, R, R, 4) NDHWC) and, with
+    the depth loss, depth (B, S, S)."""
+    if not (config.load_pcl or config.load_voxel):
+        raise ValueError("the train step needs load_pcl or load_voxel")
     if config.cond_mode:
         raise NotImplementedError("conditional discriminators are ROADMAP A13")
     render = config.render
 
-    def encode(encoder, pcl, generator):
-        if config.noise_weight and generator is None:
-            raise ValueError("noise_weight needs a generator")
-        return encode_pcl(encoder, pcl, noise_weight=config.noise_weight,
-                          generator=generator)
+    def encode(encoder, chunk, generator):
+        """Encoder forward -> (z, z_reg): the PointNet's latent and its
+        norm, or the U-Net's (volume, global) pair and a zero."""
+        if config.load_pcl:
+            if config.noise_weight and generator is None:
+                raise ValueError("noise_weight needs a generator")
+            return encode_pcl(encoder, chunk["pcl"], noise_weight=config.noise_weight,
+                              generator=generator)
+        return encoder(chunk["voxel"]), torch.zeros((), device=chunk["voxel"].device)
 
     def discriminator_step(state, batch, generator, alpha, nerf_noise):
         real = batch["img"]
@@ -198,7 +207,7 @@ def make_train_step(config: TrainStepConfig) -> Callable:
         else:
             cams = batch["cam2world"]
         with torch.no_grad():  # generation is gradient-free
-            z, _ = encode(state.encoder, batch["pcl"], generator)
+            z, _ = encode(state.encoder, batch, generator)
             gen_imgs, _ = state.generator(z, cams, render, generator=generator,
                                           nerf_noise=nerf_noise)
 
@@ -230,7 +239,7 @@ def make_train_step(config: TrainStepConfig) -> Callable:
         try:
             for i in range(k):
                 chunk = {key: v[i * b:(i + 1) * b] for key, v in batch.items()}
-                z, z_reg = encode(E, chunk["pcl"], generator)
+                z, z_reg = encode(E, chunk, generator)
                 gen_imgs, gen_depths = G(z, chunk["cam2world"], render,
                                          generator=generator, nerf_noise=nerf_noise)
                 loss_G = (gan_g_loss(D(gen_imgs, alpha))

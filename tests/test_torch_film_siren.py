@@ -96,13 +96,14 @@ def test_folded_din32_l8_matches_pallas_interpret(freq_scale, dtype):
 
 
 def test_kernel_checks_take_din32_for_the_forward_only():
-    """The checks both wrappers run on a card: the forward takes Din 3 or
-    32 and 2 to 8 layers; the backward Din 3 only (Din 32 is voxel
-    training, ROADMAP A12)."""
+    """The checks the wrappers run on a card: the forward and the backward
+    take Din 3 or 32 and 2 to 8 layers; a wrapper of xyz points only (the
+    study kernels') refuses 32."""
     t_in = [torch.from_numpy(a) for a in _voxel_inputs(1.0, H=tfs.KERNEL_HIDDEN)]
     tfs._check_kernel_inputs(*t_in)
-    with pytest.raises(ValueError, match="A12"):
-        tfs._check_kernel_inputs(*t_in, name="film_siren_mlp_bwd", widths=(tfs.KERNEL_IN,))
+    tfs._check_kernel_inputs(*t_in, name="film_siren_mlp_bwd")
+    with pytest.raises(ValueError, match="32 features, the kernel takes 3$"):
+        tfs._check_kernel_inputs(*t_in, name="film_siren_study", widths=(tfs.KERNEL_IN,))
     narrow = [t[..., :5] if i == 0 else t[:5] if i == 3 else t for i, t in enumerate(t_in)]
     with pytest.raises(ValueError, match="3 or 32"):
         tfs._check_kernel_inputs(*narrow)

@@ -47,18 +47,20 @@ def _assert_grads_close(port, ref, rtol):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("freq_scale,rtol", [
+@pytest.mark.parametrize("freq_scale,rtol,din,L", [
     # fp32 sums in another order (observed 5.4e-7 of each grad's max)
-    (1.0 / 30.0, 1e-5),
+    (1.0 / 30.0, 1e-5, 3, 4),
     # freq 30 +- 15: a 1e-7 difference in pre grows ~8x per layer through
     # the recompute and again through the backward (observed 1.4e-4)
-    (1.0, 5e-4),
-], ids=["freq_1", "freq_30"])
-def test_folded_vjp_fp32_matches_pallas_interpret(freq_scale, rtol):
+    (1.0, 5e-4, 3, 4),
+    # the voxel family's width and depth, Din 32 and L 8 (observed 4.4e-7)
+    (1.0 / 30.0, 1e-5, 32, 8),
+], ids=["freq_1", "freq_30", "din32_l8_freq_1"])
+def test_folded_vjp_fp32_matches_pallas_interpret(freq_scale, rtol, din, L):
     """fp32 operands: the plain VJP against the real Pallas backward kernel in
     interpret mode, at a ragged N (100 points, 32-point tiles: the padded
     lanes' ones row must not count in the bias grads)."""
-    arrays, g = _inputs(freq_scale=freq_scale)
+    arrays, g = _inputs(freq_scale=freq_scale, Din=din, L=L)
     j = jfs._backward_pallas(*map(jnp.asarray, arrays), jnp.asarray(g), tile=32,
                              matmul_dtype=jnp.float32, interpret=True)
     t = tfs.film_siren_mlp_folded_vjp(*map(torch.from_numpy, arrays),
@@ -78,6 +80,20 @@ def test_folded_vjp_bf16_matches_pallas_interpret():
     # freq ~1 a flip moves a grad by ~one bf16 step of one term (observed
     # 7.8e-5 of each grad's max)
     _assert_grads_close([x.numpy() for x in t], j, rtol=5e-4)
+
+
+def test_folded_vjp_bf16_din32_l8_matches_pallas_interpret():
+    """bf16 operands at the voxel family's width and depth (Din 32, L 8):
+    the dpoints the trilinear backward scatters, and every weight grad."""
+    arrays, g = _inputs(Din=32, L=8, freq_scale=1.0 / 30.0, seed=11)
+    j = jfs._backward_pallas(*map(jnp.asarray, arrays), jnp.asarray(g), tile=32,
+                             matmul_dtype=jnp.bfloat16, interpret=True)
+    t = tfs.film_siren_mlp_folded_vjp(*map(torch.from_numpy, arrays),
+                                      torch.from_numpy(g), matmul_dtype=torch.bfloat16)
+    assert t[0].shape == (2, 100, 32)
+    # as at Din 3: a flipped bf16 rounding moves a grad by ~one bf16 step of
+    # one term (observed 2.3e-4 of each grad's max)
+    _assert_grads_close([x.numpy() for x in t], j, rtol=1e-3)
 
 
 def test_folded_vjp_fp32_matches_autograd_of_folded_forward():
