@@ -48,10 +48,15 @@ Refuses to run without CUDA (exit 1). Otherwise:
      (2 x 49,152 ray samples), and on a 12 x 64^3 x 32 volume at the
      training ray chunk (12 x 49,152); times it beside the plain version
      and `F.grid_sample`; and holds the trilinear backward kernel
-     at the same sets: dcoords against `border_trilerp_vjp_reference`, dV
-     against an fp64 scatter of the same contributions (and no farther from
-     it than the plain `index_add_` is), timed beside the plain version, the
-     bound and `grid_sampler_3d_backward`;
+     at the same sets, adding dV into a buffer of seeded values: dcoords
+     against
+     `border_trilerp_vjp_reference`, dV against an fp64 sum of the buffer
+     and the same contributions (and no farther from it than the plain
+     `index_add_` is), timed beside the plain version, the bound (the
+     coordinates and g read once, each distinct row read and written once)
+     and `grid_sampler_3d_backward`, with the 16-byte reductions it issues
+     and the first design's (counted in plain torch by
+     `presummed_contributions`, a replica of its grouping);
   7. drives the voxel-conditioned serving path: the `dg` preset (UNet3D
      4 -> 32, f_maps 32, 4 levels; TALLSIREN_FG, 8 x 256 on 32 sampled
      features) at step 30000 with seeded random weights, saved as a port
@@ -78,8 +83,10 @@ Refuses to run without CUDA (exit 1). Otherwise:
      peak memory, launches of K1, K2 and both trilinear kernels per step
      against the design's count), finite losses, G and E moved (the U-Net's
      grads come back through the trilinear backward), one step against the
-     same step with the plain versions in every kernel's place, and one
-     profiled step.
+     same step with the plain versions in every kernel's place, one
+     profiled step (the dV scatters' device time), one step whose ops on a
+     tensor of dV's shape are counted (one zeroing a render with grad, no
+     sum), and the step's dV path (that zeroing and the scatters).
 Prints one JSON line of kernel results (each kernel's time beside its plain
 version's, the least time the card could take for the same work, and the
 one PyTorch call that computes the same function where there is one; K1 and
@@ -177,6 +184,12 @@ DIN32_BWD_VS_PLAIN_MAX = 2.0  # max|K2 - fp64| / max|plain - fp64| [1.507]
 # more than TRI_BWD_VS_PLAIN times the plain fp32 `index_add_`'s.
 TRI_DCOORDS_TOL = 1e-5
 TRI_BWD_VS_PLAIN = 2.0
+# the trilinear backward's first design (a fresh, zeroed dV a call and one
+# 16-byte atomic a live corner and channel quad) at the training chunk, by
+# the profiler's device time on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+# printed beside this design's time
+FIRST_BWD_MS = 0.3028
+FIRST_SCATTER_MS = 0.1941
 # Phase 5: one train step with the kernels against the same step with the
 # plain versions in their places (same state, batch and random numbers). A
 # flipped pixel (sign of relu(sigma) at the last sample) moves a loss by
@@ -605,6 +618,20 @@ def profile_device(fn):
     return len(device), busy_us / 1e3, by_name
 
 
+def ops_on_shape(fn, shape: tuple) -> dict:
+    """Run fn under the profiler (host ops, with their input shapes); returns
+    {op name: count} of the aten ops that take a tensor of `shape`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        fn()
+    counts: dict[str, int] = {}
+    for e in prof.events():
+        if list(shape) in [list(t) for t in e.input_shapes]:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
 def print_top(phase: str, by_name: dict, n: int = 8) -> None:
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]:
         print(f"{phase}:   {us / 1e3:9.3f} ms in {count:4d} x {name[:90]}")
@@ -1006,8 +1033,11 @@ def device_ms(fn, names: tuple, iters: int = 20) -> float:
     calls measures instead."""
     fn()
     torch.cuda.synchronize()
-    profiled = profile_device(lambda: [fn() for _ in range(iters)])
-    if profiled is None:
+    for _ in range(2):  # the profiler has once seen no device work in a run
+        profiled = profile_device(lambda: [fn() for _ in range(iters)])
+        if profiled is not None:
+            break
+    else:
         return float("nan")
     by_name = profiled[2]
     us = sum(t for name, (t, _) in by_name.items() if any(n in name for n in names))
@@ -1025,27 +1055,32 @@ def touched_rows(volume: torch.Tensor, coords: torch.Tensor) -> int:
 
 
 def check_trilinear_bwd(label: str, volume, coords, g, failures: list) -> float:
-    """Hold the trilinear backward kernel against `border_trilerp_vjp_reference`
-    (dcoords) and against an fp64 scatter of the same contributions (dV, in
-    k_v fp32 roundings of sum|contributions| per voxel, and by L2 distance no
-    farther than TRI_BWD_VS_PLAIN x the plain fp32 `index_add_`'s); returns
-    max|dV - plain|."""
+    """Hold the trilinear backward kernel, adding dV into a buffer that holds
+    seeded N(0, 1) values, against `border_trilerp_vjp_reference` (dcoords)
+    and against an fp64 sum of the buffer and the same contributions (each
+    voxel within k_v fp32 roundings of its sum of |terms|, k_v the buffer's
+    value and its contributions; by L2 distance no farther than
+    TRI_BWD_VS_PLAIN x the plain fp32 `index_add_` added to the buffer);
+    returns max|dV - plain|."""
     from conditioned_nerf_gan_torch.ops.grid_sample import (
         border_trilerp_vjp_reference,
         corner_contributions,
     )
     from conditioned_nerf_gan_torch.ops.kernels.trilinear import trilinear_bwd
 
-    dvol, dcoords = trilinear_bwd(volume, coords, g, need_volume=True, need_coords=True)
+    start = torch.randn(tuple(volume.shape), device=volume.device,
+                        generator=torch.Generator(volume.device).manual_seed(8))
+    dvol = start.clone()
+    dcoords = trilinear_bwd(volume, coords, g, dvol, need_coords=True)
     pvol, pcoords = border_trilerp_vjp_reference(volume, coords, g, True)
+    pvol.add_(start)
     rows, parts = corner_contributions(volume, coords, g)
     C = volume.shape[-1]
-    exact = torch.zeros(volume.numel() // C, C, dtype=torch.float64, device=volume.device)
-    exact.index_add_(0, rows, parts.double())
-    magnitude = torch.zeros_like(exact).index_add_(0, rows, parts.double().abs())
-    count = torch.zeros(exact.shape[0], dtype=torch.float64, device=volume.device)
+    exact = start.double().reshape(-1, C).index_add_(0, rows, parts.double())
+    magnitude = start.double().abs().reshape(-1, C).index_add_(0, rows, parts.double().abs())
+    count = torch.ones(exact.shape[0], dtype=torch.float64, device=volume.device)
     count.index_add_(0, rows, (parts != 0).any(-1).double())
-    del parts, rows
+    del parts, rows, start
     dflat, pflat = dvol.reshape(-1, C).double(), pvol.reshape(-1, C).double()
     k64, p64 = (dflat - exact).norm().item(), (pflat - exact).norm().item()
     ulp = 2.0 ** -24
@@ -1055,17 +1090,77 @@ def check_trilinear_bwd(label: str, volume, coords, g, failures: list) -> float:
     c_err = (dcoords - pcoords).abs().max().item()
     c_max = pcoords.abs().max().item()
     err = (dvol - pvol).abs().max().item()
-    print(f"phase 6 [{label}] backward: dcoords max|kernel - plain| {c_err:.3e} (bound "
-          f"{TRI_DCOORDS_TOL} x max|plain| {c_max:.3e}); dV max|kernel - plain| {err:.3e}, "
-          f"|kernel - fp64|_2 {k64:.3e} vs |index_add - fp64|_2 {p64:.3e} (ratio "
-          f"{k64 / max(p64, 1e-300):.3f}, bound {TRI_BWD_VS_PLAIN} + {floor:.1e}); every voxel "
-          f"within k_v roundings of sum|contributions|: {within} (largest "
-          f"{roundings.max().item():.2f} roundings; k_v up to {int(count.max().item())})")
+    print(f"phase 6 [{label}] backward, into a buffer of N(0, 1): dcoords "
+          f"max|kernel - plain| {c_err:.3e} (bound {TRI_DCOORDS_TOL} x max|plain| "
+          f"{c_max:.3e}); dV max|kernel - plain| {err:.3e}, |kernel - fp64|_2 {k64:.3e} vs "
+          f"|index_add - fp64|_2 {p64:.3e} (ratio {k64 / max(p64, 1e-300):.3f}, bound "
+          f"{TRI_BWD_VS_PLAIN} + {floor:.1e}); every voxel within k_v roundings of "
+          f"sum|terms|: {within} (largest {roundings.max().item():.2f} roundings; k_v up "
+          f"to {int(count.max().item())})")
     if not (torch.isfinite(dvol).all() and torch.isfinite(dcoords).all()
             and c_err <= TRI_DCOORDS_TOL * c_max and within
             and k64 <= TRI_BWD_VS_PLAIN * p64 + floor):
         failures.append(f"phase 6 [{label}]: the backward kernel disagrees with its plain version")
     return err
+
+
+PRESUM_TILE = 256  # csrc/trilinear_bwd.cu's TILE: the points one CTA pre-sums
+
+
+def presummed_contributions(volume, coords, g):
+    """The backward kernel's pre-sums in plain torch: (rows (M,), sums (M,
+    C)), one for each distinct row of a (B * D * H * W, C) view of dV that
+    the live corners (weight not exactly zero) of one tile touch, with that
+    tile's contributions to the row summed in fp32. A tile is the kernel's
+    CTA: PRESUM_TILE consecutive points of one batch element. dV is the sums
+    added at their rows. The kernel issues M x C / 4 16-byte reductions,
+    and one more a channel quad for each row that its sum loop's equal runs
+    cut (at most PRESUM_TILE / min(C / 4, 8) - 1 a tile and quad)."""
+    from conditioned_nerf_gan_torch.ops.grid_sample import corner_contributions
+
+    B, N, _ = coords.shape
+    n_rows = volume.numel() // volume.shape[-1]
+    rows, parts = corner_contributions(volume, coords, g)
+    _, weights = corner_contributions(volume[..., :1], coords, torch.ones_like(g[..., :1]))
+    live = weights[:, 0] != 0
+    # each point's tile, numbered (b, tile) as the kernel's CTAs; the rows
+    # are corner-major, (8, B * N)
+    tiles = -(-N // PRESUM_TILE)
+    tile = (torch.arange(B, device=coords.device)[:, None] * tiles
+            + torch.arange(N, device=coords.device) // PRESUM_TILE)
+    key = tile.reshape(-1).repeat(8)[live] * n_rows + rows[live]
+    groups, which = torch.unique(key, return_inverse=True)
+    sums = torch.zeros(groups.numel(), parts.shape[1], dtype=parts.dtype, device=parts.device)
+    sums.index_add_(0, which, parts[live])
+    return groups % n_rows, sums
+
+
+def scatter_counts(volume, coords) -> dict:
+    """What a dV launch moves, from the points alone (g ~ N(0, 1) has no
+    zero), counted in plain torch, not by the kernel: the live (point,
+    corner) pairs (weight not exactly zero), the distinct rows they touch,
+    and the 16-byte reductions issued: by the kernel, one a (tile, distinct
+    row) of its grouping (`presummed_contributions`) and channel quad, plus
+    at most one a quad for each cut of its sum loop's runs that falls inside
+    a row (`reductions_max`: every cut does); by the first design, one a
+    live pair and quad. Printed, and `pairs` and `rows` set the bound; none
+    goes into the kernels line."""
+    from conditioned_nerf_gan_torch.ops.grid_sample import corner_contributions
+
+    B, N, _ = coords.shape
+    quads = volume.shape[-1] // 4
+    ones = torch.ones(B, N, 1, device=coords.device)
+    rows, weights = corner_contributions(volume[..., :1], coords, ones)
+    live = weights[:, 0] != 0
+    groups, _ = presummed_contributions(volume[..., :4], coords, ones.expand(-1, -1, 4))
+    tiles = B * -(-N // PRESUM_TILE)
+    # per pass of up to 8 quads, PRESUM_TILE / quads runs of the tile's pairs
+    passes = [min(8, quads - q0) for q0 in range(0, quads, 8)]
+    cuts = tiles * sum((PRESUM_TILE // nq - 1) * nq for nq in passes)
+    return dict(pairs=int(live.sum()), rows=int(torch.unique(rows[live]).numel()),
+                reductions=groups.numel() * quads,
+                reductions_max=groups.numel() * quads + cuts,
+                reductions_first=int(live.sum()) * quads)
 
 
 def phase6_trilinear(device, failures: list) -> tuple[dict, dict]:
@@ -1153,27 +1248,44 @@ def phase6_trilinear(device, failures: list) -> tuple[dict, dict]:
                              .astype(np.float32)).to(device)
         worst_bwd = max(worst_bwd, check_trilinear_bwd(label, volume, coords, g, failures))
         grad_ncdhw = g.transpose(1, 2)[:, :, None, None, :].contiguous()
-        main = lambda: trilinear_bwd(volume, coords, g)
+        buf = torch.zeros_like(volume)
+        main = lambda: trilinear_bwd(volume, coords, g, buf)
         event_ms = cuda_ms(main, iters)
-        ms = device_ms(main, ("trilinear_bwd_kernel", "FillFunctor"))
-        scatter_ms = device_ms(main, ("trilinear_bwd_kernel",))
-        plain_ms = cuda_ms(lambda: border_trilerp_vjp_reference(volume, coords, g, False),
+        ms = device_ms(main, ("trilinear_bwd_presum_kernel",))
+        plain_ms = cuda_ms(lambda: buf.add_(border_trilerp_vjp_reference(volume, coords, g,
+                                                                          False)[0]),
                            max(3, iters // 5))
         lib_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
             grad_ncdhw, volume_ncdhw, grid, 0, 1, False, [True, False]), iters)
-        # coordinates and cotangent read once, dV written once (its zeroing
-        # is the design's own cost, not the function's)
-        bound_ms, bound_by = bound(B * N * (3 + C) * 4 + volume.numel() * 4, 0.0,
-                                   float(B * N * 8 * C))
-        print(f"phase 6 [{label}] backward time (dV only, as on the main path; device, dV's "
-              f"zeroing included): kernel {ms:.4f} ms, of which the scatter kernel "
-              f"{scatter_ms:.4f} ms and dV's zeroing {ms - scatter_ms:.4f} ms; a call of the "
-              f"wrapper {event_ms:.4f} ms (events), plain {plain_ms:.4f} ms, "
-              f"grid_sampler_3d_backward (NCDHW, yardstick) {lib_ms:.4f} ms; bound "
+        counts = scatter_counts(volume, coords)
+        # coordinates and cotangent read once, each distinct row the live
+        # corners touch read and written once; 3 products and an add a live
+        # pair and channel
+        bound_ms, bound_by = bound(B * N * (3 + C) * 4 + counts["rows"] * C * 4 * 2, 0.0,
+                                   float(counts["pairs"] * 4 * C))
+        print(f"phase 6 [{label}] backward time (dV into the caller's buffer, as on the main "
+              f"path, no zeroing; device): kernel {ms:.4f} ms; a call of the wrapper "
+              f"{event_ms:.4f} ms (events), plain (its dV added to the buffer) {plain_ms:.4f} ms, "
+              f"grid_sampler_3d_backward (NCDHW; yardstick, which also allocates and zeroes a "
+              f"fresh dV) {lib_ms:.4f} ms; counted in plain torch: live pairs {counts['pairs']}, "
+              f"distinct rows {counts['rows']} "
+              f"({counts['rows'] / (volume.numel() // C):.4f} of the volume's), 16-byte "
+              f"reductions issued {counts['reductions']} to {counts['reductions_max']} (one a "
+              f"live pair and quad, as the first design issued: {counts['reductions_first']}, "
+              f"{counts['reductions_first'] / counts['reductions']:.2f}x to "
+              f"{counts['reductions_first'] / counts['reductions_max']:.2f}x more); bound "
               f"{bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / ms:.3f} of it")
         bwd_rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=lib_ms, call_ms=event_ms, scatter_ms=scatter_ms)
-        del coords, g, grad_ncdhw, volume_ncdhw, grid
+                               library_ms=lib_ms, call_ms=event_ms)
+        if label == "training chunk":
+            share = bwd_rows[label]["bound_ms"]
+            print(f"phase 6 [{label}] the first design (PERF.md, an H100 at 700 W): its scatter "
+                  f"{FIRST_SCATTER_MS:.4f} ms a call, at {share / FIRST_SCATTER_MS:.3f} of this "
+                  f"bound, and a fresh dV's zeroing {FIRST_BWD_MS - FIRST_SCATTER_MS:.4f} ms "
+                  f"in each call ({FIRST_BWD_MS:.4f} together), which this design leaves to "
+                  f"the render, once a step; scatter to scatter this design is "
+                  f"{FIRST_SCATTER_MS / bwd_rows[label]['ms']:.2f}x faster a call")
+        del coords, g, grad_ncdhw, volume_ncdhw, grid, buf
         torch.cuda.empty_cache()
     del volumes
     torch.cuda.empty_cache()
@@ -1437,6 +1549,7 @@ def phase9_dg_train(device, failures: list) -> dict:
     profiled = profile_device(
         lambda: train_step(state, batch, rng, bench.alpha, bench.nerf_noise))
     take_counts()
+    scatter_ms = float("nan")
     if profiled is None:
         print("phase 9: the profiler recorded no device activity; busy share not measured")
     else:
@@ -1446,19 +1559,40 @@ def phase9_dg_train(device, failures: list) -> dict:
               f"{busy_ms:.3f} ms; busy share {busy_ms / mean_ms:.4f} of the timed steps' mean "
               f"{mean_ms:.3f} ms (idle {1 - busy_ms / mean_ms:.4f})")
         print_top("phase 9", by_name, n=16)
+        scatters = [(us, n) for name, (us, n) in by_name.items()
+                    if "trilinear_bwd_presum_kernel" in name]
+        scatter_ms = sum(us for us, _ in scatters) / 1e3
+        if sum(n for _, n in scatters) != design[3]:
+            failures.append(f"phase 9: the profiled step ran {scatters} dV scatters, design "
+                            f"{design[3]}")
+
+    # the ops of one more step that take a full-size dV: its render zeroes one
+    # buffer (the G step's renders with grad: one a batch split) and sums none
     dv_shape = (*batch["voxel"].shape[:4], meta["unet"]["out_channels"])
+    on_dv = ops_on_shape(lambda: train_step(state, batch, rng, bench.alpha, bench.nerf_noise),
+                         dv_shape)
+    take_counts()
+    zeroings = on_dv.get("aten::zero_", 0)
+    sums = {name: n for name, n in on_dv.items() if "add" in name}
+    print(f"phase 9: ops of one step on a tensor of dV's shape {dv_shape}: {on_dv}; "
+          f"zeroings {zeroings} (design {cfg.batch_split}: one a render with grad), sums {sums} "
+          "(design none)")
+    if zeroings != cfg.batch_split or sums:
+        failures.append(f"phase 9: {zeroings} dV zeroings and sums {sums} a step, design "
+                        f"{cfg.batch_split} and none")
     del state, batch, nets, bench
     torch.cuda.empty_cache()
 
-    # what one full-size dV a chunk costs: the backward launcher zeroes one,
-    # and autograd sums the chunks' dVs into the volume's grad
-    a, b = torch.zeros(dv_shape, device=device), torch.zeros(dv_shape, device=device)
+    # the step's dV path: one zeroing a render with grad and the lookups'
+    # scatters into it (the profiled step's kernel time), no sums
     zero_ms = cuda_ms(lambda: torch.zeros(dv_shape, device=device), iters=10)
-    add_ms = cuda_ms(lambda: a.add_(b), iters=10)
-    print(f"phase 9: one dV {dv_shape} ({a.numel() * 4 / 1e6:.1f} MB) a chunk: zeroing "
-          f"{zero_ms:.4f} ms, one sum into the volume's grad {add_ms:.4f} ms; {calls} "
-          f"zeroings and {calls - 1} sums a step {calls * zero_ms + (calls - 1) * add_ms:.3f} ms")
-    del a, b
+    dv_mb = float(np.prod(dv_shape)) * 4 / 1e6
+    print(f"phase 9: the step's dV path: {cfg.batch_split} zeroing of one dV {dv_shape} "
+          f"({dv_mb:.1f} MB) {zero_ms:.4f} ms, {design[3]} scatters {scatter_ms:.4f} ms "
+          f"(profiled step; {scatter_ms / design[3]:.4f} ms a call), no sums: "
+          f"{cfg.batch_split * zero_ms + scatter_ms:.4f} ms a step (the first design, a dV a "
+          f"chunk: 32 scatters of 0.1941 ms, 32 zeroings and 31 sums 17.122 ms, ~23.3 ms a "
+          f"step; PERF.md)")
     torch.cuda.empty_cache()
     return dict(zip(("k1", "k2", "trilinear", "trilinear_bwd"), totals))
 

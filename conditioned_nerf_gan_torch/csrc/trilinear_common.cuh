@@ -5,11 +5,12 @@
 // them, with no FMA contraction, so both kernels agree with it to the bit on
 // every product they share with it.
 //
-// Work layout, the same in both kernels: one thread takes 4 channels (a
-// float4) of one point, so C / 4 neighbouring lanes share a point and each
-// corner row (C fp32, 128 bytes at C = 32) is one coalesced transaction. An
-// item is (point, channel quad), point = b * N + n; one 256-thread CTA per
-// 256 items, in point order.
+// Work layout of the forward and of the backward's dcoords kernel: one
+// thread takes 4 channels (a float4) of one point, so C / 4 neighbouring
+// lanes share a point and each corner row (C fp32, 128 bytes at C = 32) is
+// one coalesced transaction. An item is (point, channel quad), point = b * N
+// + n; one 256-thread CTA per 256 items, in point order. (The backward's dV
+// kernel tiles points its own way: trilinear_bwd.cu.)
 //
 // Each item is a chain of dependent steps: its index, the coordinates'
 // load, the anchors, the 8 corner loads, the lerps, the store. At the main

@@ -11,8 +11,11 @@ noise) is drawn up front for the whole image: the recompute of a
 checkpointed chunk replays the same fine samples and noise, and chunked and
 unchunked renders draw the same numbers. The conditioning `z` is whatever
 the SIREN takes: a latent, or the voxel family's (feature volume, global)
-pair, which every chunk (and its recompute) reads whole. `save_siren_outputs`
-(a measured-neutral training lever of the JAX package) is not ported.
+pair, which every chunk (and its recompute) reads whole; with grad on the
+kernel route the volume goes through `ops.grid_sample.one_volume_grad`
+once a render, so the backward of every chunk's lookups adds into one dV.
+`save_siren_outputs` (a measured-neutral training lever of the JAX
+package) is not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.grid_sample import one_volume_grad
 from ..ops.integration import volume_integrate
 from ..ops.rays import distance2depth, get_initial_rays, perturb_points, transform_rays
 from ..ops.sampling import merge_sorted_samples, sample_pdf
@@ -157,6 +161,10 @@ class ImplicitGenerator3d(nn.Module):
                 n_all = 2 * S if config.hierarchical_sample else S
                 noise2 = torch.randn((B, R, n_all, 1), **draw)
         rays = [points, z_vals, rays_d_world, origins, fine_u, noise1, noise2]
+        if isinstance(z, (tuple, list)) and isinstance(z[0], torch.Tensor):
+            # every lookup of the feature volume, in every chunk, adds into
+            # one dV (on the kernel route with grad)
+            z = (one_volume_grad(z[0]), *z[1:])
 
         chunks = config.ray_chunks
         if chunks > 1:

@@ -43,7 +43,10 @@ def sigmoid_rgb(rgb_sigma: torch.Tensor) -> torch.Tensor:
 
 def sample_volume_features(points: torch.Tensor, volume: torch.Tensor) -> torch.Tensor:
     """Trilinear lookup of per-point features: points (B, N, 3) world
-    coordinates inside the +-0.6 cube, volume (B, D, H, W, C) -> (B, N, C)."""
+    coordinates inside the +-0.6 cube, volume (B, D, H, W, C) -> (B, N, C).
+    In a render the volume comes through `one_volume_grad` (the generator
+    puts it through once, before its ray chunks), so the backward of every
+    lookup adds into the render's one dV."""
     coords = points / (VOXEL_LENGTH / 2.0)
     return trilinear_point_features(volume, coords, align_corners=False,
                                     padding_mode="border")

@@ -17,15 +17,19 @@ convention: coords[..., 0] = x -> W, 1 = y -> H, 2 = z -> D.
   * `trilinear_point_features`: the wrapper. On CUDA tensors it launches
     `csrc/trilinear_fwd.cu` (sm_90a) or raises; it never falls back. When
     an input needs grad it goes through `TrilinearSample`, whose backward
-    launches `csrc/trilinear_bwd.cu`. `trilinear_point_features.launches`
-    counts forward launches, `ops.kernels.trilinear.trilinear_bwd.launches`
-    backward ones. CPU tensors take the plain version under plain autograd.
+    launches `csrc/trilinear_bwd.cu` into the one dV of the volume's
+    `VolumeGrad` node: a render puts its volume through `one_volume_grad`
+    once, so all its lookups add into one buffer, zeroed once.
+    `trilinear_point_features.launches` counts forward launches,
+    `ops.kernels.trilinear.trilinear_bwd.launches` backward ones. CPU
+    tensors take the plain version under plain autograd.
 
 The JAX package's two gather strategies (the (z, y)-expanded slab and the
 (2, 2, 2, C) block gather) and its one-hot-matmul VJP work around the TPU's
 gather segments and its lack of atomic scatter; none is ported: the port's
-dV is a scatter. The zeros-padding and align_corners=True variant
-(`EmbeddingPiGAN`, ROADMAP A13) is not ported yet.
+dV is a scatter into one buffer a render. The zeros-padding and
+align_corners=True variant (`EmbeddingPiGAN`, ROADMAP A13) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -148,23 +152,84 @@ def border_trilerp_vjp_reference(volume: torch.Tensor, coords: torch.Tensor,
     return dvol, torch.stack(dcoords, dim=-1)
 
 
+def _takes_kernels(t: torch.Tensor) -> bool:
+    """CUDA tensors go to the kernels, CPU tensors to the plain versions;
+    there is no kernel for any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"trilinear_point_features: no kernel for device {t.device}")
+    return t.device.type == "cuda"
+
+
+class VolumeGrad(torch.autograd.Function):
+    """One dV for every lookup of a volume in a render. Applied once to the
+    volume, before the render's ray-chunk loop; the render samples its
+    output. Each lookup's backward (`TrilinearSample`) adds its VJP into the
+    one buffer this node owns, zeroed at the first lookup's backward, and
+    passes no grad of its own, so autograd sums nothing; this node's
+    backward, which autograd runs after all of theirs, hands the buffer to
+    the volume's grad_fn. A checkpointed chunk's recompute re-runs only the
+    lookup's forward, which neither zeroes nor scatters."""
+
+    @staticmethod
+    def forward(ctx, volume):
+        ctx.set_materialize_grads(False)  # no full-size zero grad for the lookups' None
+        ctx.dvolume = None
+        return volume.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        dvolume, ctx.dvolume = ctx.dvolume, None
+        if g is not None:  # a use of the output other than a lookup
+            dvolume = g if dvolume is None else dvolume.add_(g)
+        return dvolume
+
+
+def _volume_grad_node(volume: torch.Tensor):
+    """The `VolumeGrad` node that made `volume`, or None."""
+    node = volume.grad_fn
+    return node if type(node) is VolumeGrad._backward_cls else None
+
+
+def one_volume_grad(volume: torch.Tensor) -> torch.Tensor:
+    """The volume as a render's lookups take it: on the kernel route (a CUDA
+    volume that needs grad, grad enabled) through `VolumeGrad`, so that the
+    render's lookups add into one dV; else, or if it went through already,
+    the volume itself."""
+    if (torch.is_grad_enabled() and volume.requires_grad and _takes_kernels(volume)
+            and _volume_grad_node(volume) is None):
+        return VolumeGrad.apply(volume)
+    return volume
+
+
 class TrilinearSample(torch.autograd.Function):
     """The kernels as one differentiable op: the forward launches the
     trilinear kernel and saves the volume and coordinates; the backward
-    launches the backward kernel for what `needs_input_grad` asks (on the
-    main path dV alone: its points never need grad)."""
+    launches the backward kernel for what `needs_input_grad` asks. dV goes
+    into the buffer of the `VolumeGrad` node the volume came from (on the
+    main path dV alone: its points never need grad), and the volume gets no
+    grad here."""
 
     @staticmethod
     def forward(ctx, volume, coords):
         ctx.save_for_backward(volume, coords)
+        ctx.volume_grad = _volume_grad_node(volume)
         return _forward_kernel(volume, coords)
 
     @staticmethod
     def backward(ctx, g):
         volume, coords = ctx.saved_tensors
         need_volume, need_coords = ctx.needs_input_grad
-        return trilinear_bwd(volume, coords, g, need_volume=need_volume,
-                             need_coords=need_coords)
+        node = ctx.volume_grad
+        dvol = None
+        if need_volume:
+            if node is None:
+                raise RuntimeError("TrilinearSample: a volume that needs grad must come "
+                                   "through one_volume_grad")
+            if node.dvolume is None:
+                node.dvolume = torch.zeros(volume.shape, dtype=volume.dtype,
+                                           device=volume.device)
+            dvol = node.dvolume
+        return None, trilinear_bwd(volume, coords, g, dvol, need_coords)
 
 
 def _forward_kernel(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -182,8 +247,10 @@ def trilinear_point_features(volume: torch.Tensor, coords: torch.Tensor, *,
     [-1, 1] in the grid convention (x -> W, y -> H, z -> D) -> (B, N, C).
     Border padding with align_corners=False, sides >= 2: the voxel family's
     lookup. CUDA tensors go to the hand-written kernel (fp32, C % 4 == 0,
-    contiguous), through `TrilinearSample` when an input needs grad; CPU
-    tensors take `border_trilerp_reference` under plain autograd.
+    contiguous), through `TrilinearSample` when an input needs grad (a
+    volume that needs grad through `one_volume_grad` first, unless the
+    caller's render put it through once for all its lookups); CPU tensors
+    take `border_trilerp_reference` under plain autograd.
     """
     if padding_mode != "border" or align_corners:
         raise NotImplementedError(
@@ -193,12 +260,10 @@ def trilinear_point_features(volume: torch.Tensor, coords: torch.Tensor, *,
         raise NotImplementedError(
             f"volume of shape {tuple(volume.shape)}: the port samples (B, D, H, W, C) "
             "volumes with every side >= 2 (ROADMAP A12)")
-    if volume.device.type == "cpu":
+    if not _takes_kernels(volume):
         return border_trilerp_reference(volume, coords)
-    if volume.device.type != "cuda":
-        raise ValueError(f"trilinear_point_features: no kernel for device {volume.device}")
     if torch.is_grad_enabled() and (volume.requires_grad or coords.requires_grad):
-        return TrilinearSample.apply(volume, coords)
+        return TrilinearSample.apply(one_volume_grad(volume), coords)
     return _forward_kernel(volume, coords)
 
 

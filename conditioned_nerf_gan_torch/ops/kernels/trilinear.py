@@ -3,14 +3,15 @@
 `csrc/trilinear_fwd.cu` (sm_90a) is the counterpart of the JAX package's
 trilinear-gather kernel (scripts/bench_pallas_gather.py), the forward of
 `ops/grid_sample.py::_border_trilerp` there; `csrc/trilinear_bwd.cu` is the
-counterpart of that op's custom VJP (`_expanded_bwd`), a scatter with fp32
-atomics where the TPU formed one-hot matmuls. Both share
+counterpart of that op's custom VJP (`_expanded_bwd`), a scatter that
+pre-sums shared corner rows on chip and adds into a dV the caller owns,
+where the TPU formed one-hot matmuls. Both share
 `csrc/trilinear_common.cuh`. `trilinear_fwd` and `trilinear_bwd` check what
 they are handed, launch and raise on anything the kernels do not take; they
 never fall back. The caller, `ops.grid_sample`, holds the plain versions
 (`border_trilerp_reference`, `border_trilerp_vjp_reference`), the autograd
-Function and the forward's launch count; `trilinear_bwd.launches` counts the
-backward's launches.
+Functions (one dV a render) and the forward's launch count;
+`trilinear_bwd.launches` counts the backward's launches.
 """
 
 from __future__ import annotations
@@ -63,23 +64,45 @@ def trilinear_fwd(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def trilinear_bwd(volume: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
-                  need_volume: bool = True, need_coords: bool = False):
-    """VJP of the sampling -> (dvolume (B, D, H, W, C) or None, dcoords
-    (B, N, 3) or None), each only where asked.
+def _check_dvol(volume: torch.Tensor, dvol: torch.Tensor) -> None:
+    """The dV buffer a caller hands the backward: the volume's shape, fp32,
+    on the volume's device, contiguous and 16-byte aligned (float4 rows)."""
+    if tuple(dvol.shape) != tuple(volume.shape):
+        raise ValueError(f"trilinear_bwd: dvol has shape {tuple(dvol.shape)}, the volume "
+                         f"{tuple(volume.shape)}")
+    if dvol.dtype != torch.float32:
+        raise TypeError(f"trilinear_bwd: dvol must be float32, got {dvol.dtype}")
+    if dvol.device != volume.device:
+        raise ValueError(f"trilinear_bwd: dvol is on {dvol.device}, the volume on "
+                         f"{volume.device}")
+    if not dvol.is_contiguous():
+        raise ValueError("trilinear_bwd: dvol must be contiguous")
+    if dvol.data_ptr() % 16:
+        raise ValueError("trilinear_bwd: dvol must be 16-byte aligned (float4 rows)")
 
-    CUDA tensors go to the backward kernel: dvolume is a zeroed fp32 buffer
-    the kernel adds every weighted corner row into with atomics, dcoords the
-    JAX fraction cotangents. The cotangent g (B, N, C) may be any strided
-    view; it is made contiguous here. CPU tensors take
-    `border_trilerp_vjp_reference`. `trilinear_bwd.launches` counts kernel
-    launches.
+
+def trilinear_bwd(volume: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+                  dvol: torch.Tensor | None = None, need_coords: bool = False):
+    """VJP of the sampling: adds dvolume into `dvol` (a buffer the caller
+    owns, shaped like the volume; None: dvolume not asked) and returns
+    dcoords (B, N, 3) when `need_coords`, else None.
+
+    CUDA tensors go to the backward kernel, which sums the contributions of
+    neighbouring points that share a corner row on chip before its atomics
+    reach dV; dcoords are the JAX fraction cotangents. The cotangent g (B,
+    N, C) may be any strided view; it is made contiguous here. CPU tensors
+    take `border_trilerp_vjp_reference` and add its dV into `dvol`.
+    `trilinear_bwd.launches` counts kernel launches.
     """
+    if dvol is not None:
+        _check_dvol(volume, dvol)
     if volume.device.type == "cpu":
         from ..grid_sample import border_trilerp_vjp_reference
 
-        dvol, dcoords = border_trilerp_vjp_reference(volume, coords, g, need_coords)
-        return (dvol if need_volume else None), dcoords
+        dv, dcoords = border_trilerp_vjp_reference(volume, coords, g, need_coords)
+        if dvol is not None:
+            dvol.add_(dv)
+        return dcoords
     g = g.contiguous()
     _check_kernel_inputs(volume, coords, name="trilinear_bwd", g=g)
     B, D, H, W, C = volume.shape
@@ -91,10 +114,12 @@ def trilinear_bwd(volume: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
     if need_coords and (quads > 32 or quads & (quads - 1)):
         raise ValueError(f"trilinear_bwd: dcoords need C / 4 a power of two <= 32, "
                          f"got C={C}")
-    if not (need_volume or need_coords):
-        return None, None
+    if dvol is not None and D * H * W >= 2 ** 31 - 1:
+        raise ValueError(f"trilinear_bwd: dV of a volume of {D * H * W} voxels; the "
+                         "kernel keys voxels in 31 bits")
+    if dvol is None and not need_coords:
+        return None
     dev = volume.device
-    dvol = torch.zeros_like(volume) if need_volume else None
     dcoords = torch.empty(B, N, 3, dtype=torch.float32, device=dev) if need_coords else None
     fn = _c_function("trilinear_bwd", "trilinear_bwd", 5, 6)
     with torch.cuda.device(dev):
@@ -106,7 +131,7 @@ def trilinear_bwd(volume: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"trilinear_bwd launch failed: cudaError {err}")
     trilinear_bwd.launches += 1
-    return dvol, dcoords
+    return dcoords
 
 
 trilinear_bwd.launches = 0

@@ -16,8 +16,9 @@ conditioned_nerf_gan_tpu/training/train_step.py:155-458).
 
 The encoder is the PointNet of a point cloud (`load_pcl`) or the 3-D U-Net
 of a voxel grid (the voxel family, `dg`), whose (feature volume, global
-feature) pair conditions the render; its grads come back through the
-trilinear sampler. Modules and optimizers update in place. Randomness comes from one explicit
+feature) pair conditions the render unchanged; its grads come back through
+the trilinear sampler, the volume's as the render's one dV buffer (the
+generator's `one_volume_grad`). Modules and optimizers update in place. Randomness comes from one explicit
 `torch.Generator` on the batch's device (None: deterministic renders, which
 needs `random_gen_img` and `noise_weight` off). Not ported: the chained
 multi-step dispatch (a TPU dispatch workaround, ROADMAP A8) and the

@@ -370,7 +370,8 @@ def test_trilinear_volume_past_32_bit_offsets():
     torch.cuda.synchronize()
     assert torch.equal(out, plain)
     g = torch.from_numpy(rng.normal(0, 1, (1, 4001, 32)).astype(np.float32)).cuda()
-    dvol, dcoords = ttri.trilinear_bwd(vol, coords, g, need_volume=True, need_coords=True)
+    dvol = torch.zeros_like(vol)
+    dcoords = ttri.trilinear_bwd(vol, coords, g, dvol, need_coords=True)
     pvol, pcoords = tgs.border_trilerp_vjp_reference(vol, coords, g, True)
     torch.cuda.synchronize()
     # as test_trilinear_bwd_matches_plain, dV compared a 1 GiB slice at a time
@@ -395,11 +396,12 @@ def _border_coords(n, seed):
 
 @pytest.mark.parametrize("points,C", [("ragged", 32), ("border", 32), ("ragged", 16)])
 def test_trilinear_bwd_matches_plain(volume_coords, points, C):
-    """dV and dcoords against `border_trilerp_vjp_reference` on the card, on
-    the short index path (C 32) and the generic one (C 16): dV is the same
-    weighted corner rows summed by atomics in another order (the plain
-    `index_add_` sums with atomics too), dcoords the same products summed
-    over channels in another order."""
+    """dV and dcoords against `border_trilerp_vjp_reference` on the card, at
+    C 32 and C 16 (dcoords: the short index path and the generic one): dV is
+    the same weighted corner rows, pre-summed per tile and added by atomics
+    into a zeroed buffer in another order (the plain `index_add_` sums with
+    atomics too), dcoords the same products summed over channels in another
+    order."""
     vol, coords = volume_coords
     vol = vol[..., :C].contiguous()
     if points == "ragged":
@@ -409,22 +411,109 @@ def test_trilinear_bwd_matches_plain(volume_coords, points, C):
     g = torch.from_numpy(np.random.default_rng(6).normal(
         0, 1, (2, coords.shape[1], C)).astype(np.float32)).cuda()
     before = ttri.trilinear_bwd.launches
-    dvol, dcoords = ttri.trilinear_bwd(vol, coords, g, need_volume=True, need_coords=True)
+    dvol = torch.zeros_like(vol)
+    dcoords = ttri.trilinear_bwd(vol, coords, g, dvol, need_coords=True)
     pvol, pcoords = tgs.border_trilerp_vjp_reference(vol, coords, g, True)
     torch.cuda.synchronize()
     assert ttri.trilinear_bwd.launches == before + 1
-    assert dvol.shape == vol.shape and dcoords.shape == coords.shape
+    assert dcoords.shape == coords.shape
     # a few points per voxel: fp32 sums of a few terms in another order
     assert (dvol - pvol).abs().max().item() <= 1e-5 * pvol.abs().max().item()
     assert (dcoords - pcoords).abs().max().item() <= 1e-5 * pcoords.abs().max().item()
-    only_volume, none = ttri.trilinear_bwd(vol, coords, g)
-    assert none is None
+    only_volume = torch.zeros_like(vol)
+    assert ttri.trilinear_bwd(vol, coords, g, only_volume) is None
     assert (only_volume - pvol).abs().max().item() <= 1e-5 * pvol.abs().max().item()
+    assert ttri.trilinear_bwd(vol, coords, g, None, need_coords=True).shape == coords.shape
+
+
+def _cell_coords(n, seed):
+    """n points inside one cell of the fixture's 16 x 12 x 20 volume: every
+    point of a tile adds into the same 8 rows."""
+    rng = np.random.default_rng(seed)
+    cell = rng.uniform(0.1, 0.9, (1, n, 3)) + np.array([7, 5, 9])  # (x, y, z) voxels
+    pts = (2 * cell + 1) / np.array([20, 12, 16]) - 1
+    return torch.from_numpy(np.concatenate([pts, pts[:, ::-1]]).astype(np.float32)).cuda()
+
+
+def _ray_coords(rays, samples, seed):
+    """`samples` samples of `rays` rays from 2 cameras, ray-major as the
+    generator lays them out, normalized for a volume in the +-0.6 cube:
+    (2, rays * samples, 3)."""
+    from conditioned_nerf_gan_torch.ops.rays import (
+        create_cam2world_matrix,
+        get_initial_rays,
+        sample_camera_positions,
+        transform_rays,
+    )
+
+    u = torch.from_numpy(np.random.default_rng(seed).uniform(0.1, 0.9, (2, 3))
+                         .astype(np.float32))
+    cams = create_cam2world_matrix(sample_camera_positions(
+        2, cam_r_start=0.7, cam_r_end=1.5, uniforms=u))
+    points, z_vals, rays_d = get_initial_rays(2, samples, 49.134342641202636, (16, rays // 16),
+                                              0.25, 1.95)
+    points = transform_rays(points, z_vals, rays_d, cams)[0]
+    return (points.reshape(2, -1, 3) / 0.6).contiguous().cuda()
+
+
+@pytest.mark.parametrize("points,C", [
+    ("one cell", 32), ("border", 32), ("rays", 32), ("ragged", 32), ("ragged", 16),
+    ("ragged", 12)])
+def test_trilinear_bwd_adds_into_a_nonzero_buffer(volume_coords, points, C):
+    """dV added into a buffer that holds a seeded volume: every voxel is
+    within k_v fp32 roundings of its sum of |terms| (the buffer's value and
+    its k_v contributions, summed in fp64 with the plain roundings of each
+    contribution), as chip_smoke.py holds it. Crowded sets (every point in
+    one cell; a third of the points outside the cube or on its faces),
+    ray-ordered samples (208 rays of 48, a ragged last tile), ragged N
+    (1001), and C 16 and 12."""
+    vol, coords = volume_coords
+    vol = vol[..., :C].contiguous()
+    coords = {"one cell": lambda: _cell_coords(3000, seed=9),
+              "border": lambda: _border_coords(3000, seed=5),
+              "rays": lambda: _ray_coords(208, 48, seed=10),
+              "ragged": lambda: coords[:, :1001].contiguous()}[points]()
+    N = coords.shape[1]
+    g = torch.from_numpy(np.random.default_rng(11).normal(0, 1, (2, N, C))
+                         .astype(np.float32)).cuda()
+    start = torch.from_numpy(np.random.default_rng(12).normal(0, 1, tuple(vol.shape))
+                             .astype(np.float32)).cuda()
+    dvol = start.clone()
+    before = ttri.trilinear_bwd.launches
+    assert ttri.trilinear_bwd(vol, coords, g, dvol) is None
+    torch.cuda.synchronize()
+    assert ttri.trilinear_bwd.launches == before + 1
+    rows, parts = tgs.corner_contributions(vol, coords, g)
+    exact = start.double().reshape(-1, C).index_add(0, rows, parts.double())
+    magnitude = start.double().abs().reshape(-1, C).index_add(0, rows, parts.double().abs())
+    count = torch.ones(exact.shape[0], dtype=torch.float64, device="cuda")
+    count.index_add_(0, rows, (parts != 0).any(-1).double())
+    err = (dvol.double().reshape(-1, C) - exact).abs()
+    assert bool((err <= count[:, None] * 2.0 ** -24 * magnitude).all())
+    assert (exact - start.double().reshape(-1, C)).abs().max().item() > 0
+
+
+def test_trilinear_bwd_refuses_buffers_it_cannot_add_into(volume_coords):
+    vol, coords = volume_coords
+    g = torch.zeros(*coords.shape[:2], 32, device="cuda")
+    with pytest.raises(ValueError, match="shape"):
+        ttri.trilinear_bwd(vol, coords, g, torch.zeros_like(vol)[:1])
+    with pytest.raises(TypeError, match="float32"):
+        ttri.trilinear_bwd(vol, coords, g, torch.zeros_like(vol).double())
+    with pytest.raises(ValueError, match="is on cpu"):
+        ttri.trilinear_bwd(vol, coords, g, torch.zeros(vol.shape))
+    with pytest.raises(ValueError, match="contiguous"):
+        ttri.trilinear_bwd(vol, coords, g, torch.zeros(*vol.shape[:-1], 64,
+                                                       device="cuda")[..., ::2])
+    with pytest.raises(ValueError, match="16-byte"):
+        ttri.trilinear_bwd(vol, coords, g, torch.zeros(vol.numel() + 1, device="cuda")[1:]
+                           .view(vol.shape))
 
 
 def test_c1_cuda_volume_that_needs_grad_gets_the_backward_kernel(volume_coords):
     """A CUDA volume that needs grad gets a result with a grad_fn (the
-    `TrilinearSample` Function), and its grad is the plain backward's."""
+    `TrilinearSample` Function, on the volume's own `VolumeGrad` buffer),
+    and its grad is the plain backward's."""
     vol, coords = volume_coords
     vol = vol.clone().requires_grad_()
     fwd, bwd = tgs.trilinear_point_features.launches, ttri.trilinear_bwd.launches

@@ -95,17 +95,20 @@ def test_trilinear_sample_routes_forward_and_backward(monkeypatch):
     """`TrilinearSample` with its two kernel launches stood in for by their
     plain versions: the forward saves the volume and coordinates and counts
     a launch, the backward hands the (strided) cotangent to the backward
-    launcher and asks for dcoords only when the coordinates need grad."""
+    launcher with the buffer of the volume's `VolumeGrad` node (the
+    volume's grad), and asks for dcoords only when the coordinates need
+    grad."""
     seen = []
 
     def fwd(volume, coords):
         seen.append("forward")
         return tgs.border_trilerp_reference(volume, coords)
 
-    def bwd(volume, coords, g, need_volume, need_coords):
-        seen.append((g.shape, need_volume, need_coords))
-        dvol, dcoords = tgs.border_trilerp_vjp_reference(volume, coords, g, need_coords)
-        return dvol if need_volume else None, dcoords
+    def bwd(volume, coords, g, dvol, need_coords):
+        seen.append((g.shape, dvol is not None, need_coords))
+        dv, dcoords = tgs.border_trilerp_vjp_reference(volume, coords, g, need_coords)
+        dvol.add_(dv)
+        return dcoords
 
     monkeypatch.setattr(tgs, "trilinear_fwd", fwd)
     monkeypatch.setattr(tgs, "trilinear_bwd", bwd)
@@ -114,7 +117,7 @@ def test_trilinear_sample_routes_forward_and_backward(monkeypatch):
         v = vol.clone().requires_grad_()
         c = coords.clone().requires_grad_(coords_grad)
         before = tgs.trilinear_point_features.launches
-        out = tgs.TrilinearSample.apply(v, c)
+        out = tgs.TrilinearSample.apply(tgs.VolumeGrad.apply(v), c)
         assert tgs.trilinear_point_features.launches == before + 1 and seen[-1] == "forward"
         out[..., 1].sum().backward()  # the cotangent is an expanded, strided view
         g = torch.zeros_like(out)
@@ -126,17 +129,26 @@ def test_trilinear_sample_routes_forward_and_backward(monkeypatch):
             torch.testing.assert_close(c.grad, ref_coords, rtol=0, atol=0)
         else:
             assert c.grad is None
+    # a volume that needs grad and has no VolumeGrad node has no buffer to go to
+    out = tgs.TrilinearSample.apply(vol.clone().requires_grad_(), coords)
+    with pytest.raises(RuntimeError, match="one_volume_grad"):
+        out.sum().backward()
 
 
 def test_trilinear_bwd_on_cpu_takes_the_plain_vjp_without_launch():
+    """On the CPU the launcher adds the plain VJP's dV into the caller's
+    buffer and returns the plain dcoords, with no launch."""
     vol, coords = (torch.from_numpy(a) for a in _trilerp_inputs(seed=16))
     g = torch.ones(*coords.shape[:2], vol.shape[-1])
     before = ttri.trilinear_bwd.launches
-    dvol, dcoords = ttri.trilinear_bwd(vol, coords, g, need_volume=True, need_coords=True)
+    start = torch.from_numpy(np.random.default_rng(16).normal(size=vol.shape)
+                             .astype(np.float32))
+    dvol = start.clone()
+    dcoords = ttri.trilinear_bwd(vol, coords, g, dvol, need_coords=True)
     assert ttri.trilinear_bwd.launches == before
     ref_vol, ref_coords = tgs.border_trilerp_vjp_reference(vol, coords, g, True)
-    assert torch.equal(dvol, ref_vol) and torch.equal(dcoords, ref_coords)
-    assert ttri.trilinear_bwd(vol, coords, g)[1] is None
+    assert torch.equal(dvol, start + ref_vol) and torch.equal(dcoords, ref_coords)
+    assert ttri.trilinear_bwd(vol, coords, g, dvol) is None
 
 
 def test_cpu_volume_that_needs_grad_trains_by_plain_autograd():
