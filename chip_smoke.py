@@ -5,7 +5,9 @@
 
 Refuses to run without CUDA (exit 1). Otherwise:
   0. reports the card (nvidia-smi name and power limit), torch, CUDA, nvcc
-     and triton, and builds the CUDA kernels from `conditioned_nerf_gan_torch/csrc`;
+     and triton, and builds the CUDA kernels from `conditioned_nerf_gan_torch/csrc`
+     (the study library in 8 parts), printing each library's build time, and
+     each K1, K2 and study kernel's registers, spills and SASS size;
   1. holds the FiLM-SIREN kernel against its plain torch version
      (`film_siren_mlp_folded`, same bf16-operand math) at the thesis render
      shape, at the training chunk (12 x 49,152, where most of its main-path
@@ -67,14 +69,16 @@ Refuses to run without CUDA (exit 1). Otherwise:
      render with both plain versions in the kernels' places, and one
      profiled request;
   8. the FiLM-SIREN kernel study: holds each study kernel (K3 point-major,
-     K4 v4 feature-major, K4 v5 interleaved) in each of its modes, at every
-     tile the study tool launches it with and at T 128, against its plain
-     version (`film_study_reference`) at the study shape (2 x 786,432, 4 x
-     256) and a ragged 2 x 1,000, times each mode and its plain version at
-     T 128, prints K1's phase-1 time at 2 x 786,432 beside K4 v4 `sin7`'s
-     (K1's function in its earlier mma.sync design, the same run), then runs the
-     study tool's variants (the default set, the tile sweeps, the other
-     modes and K1 + K2's VJP) through `run_study`, counting launches;
+     K4 v4 feature-major cooperative, K4 v5 feature-major ping-pong, all on
+     the wgmma + TMA trunk) in each of its modes, at every tile the study
+     tool launches it with and at T 128, against its plain version
+     (`film_study_reference`) at the study shape (2 x 786,432, 4 x 256) and
+     a ragged 2 x 1,000, times each mode and its plain version at T 128
+     beside its bound, K1's phase-1 time at 2 x 786,432 and its first
+     design's time, prints the split of K1's time (K3 nosin and nodot
+     against single, K4 v5 against v4 sin7), then runs the study tool's
+     variants (the default set, the tile sweeps, the other modes and K1 +
+     K2's VJP) through `run_study`, counting launches;
   9. drives the voxel family's training path: the `dg` preset at stage 2
      (step 16000) at full width (UNet3D 4 -> 32, f_maps 32, 4 levels on 12
      voxel grids of 64^3; TALLSIREN_FG 8 x 256 on 32 sampled features; no
@@ -217,6 +221,14 @@ STUDY_Q999_TOL = 4e-3  # 99.9th percentile of |kernel - plain| [2.03e-3, the sam
 # fp32 roundings of max|fp64 sums|, as in phase 1 [1.112, v3 nosin ragged]
 STUDY_VS_PLAIN = 1.25
 STUDY_TILE = 128  # points per CTA of the timed modes: K1's tile
+# each (kernel, mode) of the study at T 128 in its first design (mma.sync, a
+# cp.async ring, one CTA a tile), built from the parent commit's source by
+# tools/time_study_designs.py on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+# printed beside this design's time
+EARLIER_STUDY_MS = {("v3", "single"): 3.7009, ("v3", "nosin"): 3.0281,
+                    ("v3", "nodot"): 1.7508, ("v3", "jnpsin"): 10.1633,
+                    ("v4", "full"): 3.6314, ("v4", "sin7"): 3.5545, ("v4", "nosin"): 2.7972,
+                    ("v4", "nodot"): 1.6987, ("v5", "interleave"): 4.2102}
 # peaks of an H100 SXM (NVIDIA's data sheet) for the bounds: dense bf16 on
 # the tensor cores, FP32 instructions on the CUDA cores (67 TFLOP/s counts
 # an FMA as two), HBM3
@@ -256,8 +268,55 @@ def print_code_size(library) -> None:
         name = re.search(r"\d(film_siren_[a-z0-9_]+?)(?:E|I)", mangled)
         din = re.search(r"ILi(\d+)E", mangled)
         label = (name.group(1) if name else mangled[:60]) + (f"<{din.group(1)}>" if din else "")
+        if "film_study_kernel" in mangled:
+            label = "film_study_kernel " + study_label(mangled)
         count = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))
         print(f"  SASS: {label}: {count} instructions")
+
+
+def study_label(mangled: str) -> str:
+    """`film_study_kernel<layout, T, act0, act, products>` of a mangled study
+    kernel name, in the wrapper's names ("v3 T128 fast_sin/affine dot")."""
+    import re
+
+    from conditioned_nerf_gan_torch.ops.kernels.film_study import ACT_IDS, LAYOUT_IDS
+
+    found = re.search(r"film_study_kernelILi(\d)ELi(\d+)ELi(\d)ELi(\d)ELb([01])E", mangled)
+    if not found:
+        return mangled[:60]
+    layout, tile, act0, act, dot = (int(v) for v in found.groups())
+    layouts = {v: k for k, v in LAYOUT_IDS.items()}
+    acts = {v: k for k, v in ACT_IDS.items()}
+    return f"{layouts[layout]} T{tile} {acts[act0]}/{acts[act]} {'dot' if dot else 'nodot'}"
+
+
+def print_ptxas(library) -> None:
+    """Each part's compile time, and each study kernel's registers, stack
+    frame, spills and how often ptxas noted that it serialised (C7520) or
+    fenced (C7519) its wgmmas, from the build log (ptxas -v)."""
+    import re
+
+    function, frame, notes = None, "", {}  # notes: (function, code) -> count
+    for line in library.log.splitlines():
+        if line.startswith("part "):
+            print(f"  nvcc {line.strip()}")
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            function, frame = entry.group(1), ""
+        found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", line)
+        if found:
+            frame = "stack {} B, spill stores {} B, spill loads {} B".format(*found.groups())
+        note = re.search(r"\((C75\d\d)\).* in function '(\S+)'", line)
+        if note:  # ptxas names the function; its notes come before its entry
+            key = (note.group(2), note.group(1))
+            notes[key] = notes.get(key, 0) + 1
+        used = re.search(r"Used (\d+) registers", line)
+        if used and function:
+            counted = ", ".join(f"{code} x{n}" for (fn, code), n in sorted(notes.items())
+                                if fn == function)
+            print(f"  ptxas: {study_label(function)}: {used.group(1)} registers, {frame}"
+                  + (f"; {counted}" if counted else ""))
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1646,8 +1705,9 @@ def check_study(kernel: str, mode: str, tiles: list[int], label: str, inp: dict,
 def phase8_study(device, failures: list, k1_ms: float) -> tuple[list, dict]:
     """The kernel study: every instance the study tool launches (and every
     mode at T 128) checked at the study shape and a ragged N, each mode timed
-    at T 128, K1's phase-1 time `k1_ms` at the study shape beside K4 v4
-    sin7's (K1's function in its earlier mma.sync design), then the study tool's variants
+    at T 128 beside its bound, K1's phase-1 time `k1_ms` at the study shape
+    and its first design's time, the split of K1's time (K3 nosin and nodot
+    against single; K4 v5 against v4 sin7), then the study tool's variants
     through its own function; returns the JSON rows of K3, K4 v4 and K4 v5
     and the launches of every kernel counter in the tool's run."""
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
@@ -1687,7 +1747,9 @@ def phase8_study(device, failures: list, k1_ms: float) -> tuple[list, dict]:
                         print(f"phase 8 [{kernel} {mode}] time at 2 x {N}, T={STUDY_TILE}: "
                               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                               f"{bound_ms:.4f} ms ({bound_by}; kernel at "
-                              f"{bound_ms / ms:.3f} of it)")
+                              f"{bound_ms / ms:.3f} of it), K1 {k1_ms:.4f} ms (phase 1; "
+                              f"kernel / K1 {ms / k1_ms:.3f}), first design "
+                              f"{EARLIER_STUDY_MS[(kernel, mode)]:.4f} ms")
                     del inp
                     torch.cuda.empty_cache()
             name, replaces = sources[kernel]
@@ -1699,11 +1761,17 @@ def phase8_study(device, failures: list, k1_ms: float) -> tuple[list, dict]:
                              bound_ms=first["bound_ms"], bound_by=first["bound_by"],
                              library_ms=None, mode=next(iter(modes)), modes=timed))
 
-    old = next(r for r in rows if r["name"] == "film_siren_study_v4")["modes"]["sin7"]["ms"]
-    print(f"phase 8: K1's function at 2 x {IMAGE_SIZE * IMAGE_SIZE * 48}, the same run: "
-          f"K1 (wgmma + TMA trunk) {k1_ms:.4f} ms (phase 1), K4 v4 sin7 at T "
-          f"{STUDY_TILE} (the earlier mma.sync design) {old:.4f} ms; K1 / v4 sin7 "
-          f"{k1_ms / old:.3f}")
+    ms = {(r["name"][-2:], mode): t["ms"] for r in rows for mode, t in r["modes"].items()}
+    single, sin7 = ms[("v3", "single")], ms[("v4", "sin7")]
+    print(f"phase 8: the split of K1's time at 2 x {IMAGE_SIZE * IMAGE_SIZE * 48}, T "
+          f"{STUDY_TILE}, the same run: K1 {k1_ms:.4f} ms (phase 1), K3 single (K1 with "
+          f"fast_sin) {single:.4f} ms (K3 single / K1 {single / k1_ms:.3f}); K3 nosin / "
+          f"single {ms[('v3', 'nosin')] / single:.3f} (the products and the weight stream), "
+          f"K3 nodot / single {ms[('v3', 'nodot')] / single:.3f} (the sins), overlap "
+          f"(nosin + nodot - single) / single "
+          f"{(ms[('v3', 'nosin')] + ms[('v3', 'nodot')] - single) / single:.3f}; K4 v5 / v4 "
+          f"sin7 {ms[('v5', 'interleave')] / sin7:.3f} (ping-pong against cooperative), v4 "
+          f"sin7 / K1 {sin7 / k1_ms:.3f} (K1's function feature-major)")
 
     # the main path: the study tool's variants, through its own function
     names = (list(study.DEFAULT_VARIANTS) + list(study.SWEEPS)
@@ -1756,11 +1824,14 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(f"built {lib.path.name} in {lib.build_seconds:.2f} s")
-        for line in lib.log.splitlines():
-            if (("Used" in line and "registers" in line) or "spill" in line
-                    or "bytes stack" in line or "C7520" in line or "C7512" in line):
-                print("  ptxas:", line.strip()[:240])
-        if lib.name in ("film_siren_fwd", "film_siren_bwd"):
+        if lib.name == "film_siren_study":
+            print_ptxas(lib)
+        else:
+            for line in lib.log.splitlines():
+                if (("Used" in line and "registers" in line) or "spill" in line
+                        or "bytes stack" in line or "C7520" in line or "C7512" in line):
+                    print("  ptxas:", line.strip()[:240])
+        if lib.name in ("film_siren_fwd", "film_siren_bwd", "film_siren_study"):
             print_code_size(lib.path)
 
     failures: list[str] = []

@@ -1,6 +1,7 @@
 // The FiLM-SIREN trunk on Hopper (sm_90a), shared by the forward kernel
-// (film_siren_fwd.cu, K1) and the recompute-and-sweep kernel of the VJP
-// (film_siren_bwd.cu, K2).
+// (film_siren_fwd.cu, K1), the recompute-and-sweep kernel of the VJP
+// (film_siren_bwd.cu, K2) and the study kernels (film_siren_study.cu, K3
+// and K4, which also read the ring's chunks as wgmma's A, feature-major).
 //
 // A trunk layer is a (points x 256) . (256 x 256) product of bf16 operands
 // with fp32 sums, followed by an elementwise epilogue (sin7 of the sum plus
@@ -298,6 +299,52 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+#define FT_ACC32_REGS                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "     \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FT_ACC32_OPERANDS(d)                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),         \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),      \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define FT_ACC64_REGS                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "     \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
+  "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
+  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define FT_ACC64_OPERANDS(d)                                                             \
+  FT_ACC32_OPERANDS(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),      \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),      \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),      \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 64 or 64 x 128, fp32) (+)= a (64 x 16) . b (16 x 64 or 128), both
+// bf16 in shared memory, K-major; scale_d 0 overwrites d. Accumulators as in
+// the m64n256 layout, for units (columns) 0 .. 63 or 0 .. 127.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FT_ACC32_REGS ", "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FT_ACC32_OPERANDS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FT_ACC64_REGS ", "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FT_ACC64_OPERANDS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ---- the ring ----------------------------------------------------------------
 
 // NS stages of one chunk each
@@ -380,14 +427,17 @@ __device__ __forceinline__ void produce_blocks(Ring<NS>& r, const CUtensorMap* m
 // descriptor. Each stage is released once the products reading it are done.
 // The turn passes to the other warpgroup once the last chunk's products are
 // issued or, with fewer stages than chunks, once every stage has been: the
-// next chunk then waits for the other warpgroup to release a stage.
-template <int NCHUNK, int KSTEPS, int NS, int NACC, typename Issue>
+// next chunk then waits for the other warpgroup to release a stage. Without
+// TURNS (the study's cooperative schedule) both warpgroups issue at once.
+template <int NCHUNK, int KSTEPS, bool TURNS = true, int NS, int NACC, typename Issue>
 __device__ __forceinline__ void layer_products(Ring<NS>& r, int wg, float (&acc)[NACC],
                                                const Issue& issue) {
   constexpr int kPass = (NS < NCHUNK ? NS : NCHUNK) - 1;
   const bool lane0 = (threadIdx.x & 31) == 0;
-  mbar_wait(r.turn_bar(wg), r.turn_phase);
-  r.turn_phase ^= 1u;
+  if constexpr (TURNS) {
+    mbar_wait(r.turn_bar(wg), r.turn_phase);
+    r.turn_phase ^= 1u;
+  }
   fence_acc(acc);
   wgmma_fence();
   int prev = 0;
@@ -399,7 +449,7 @@ __device__ __forceinline__ void layer_products(Ring<NS>& r, int wg, float (&acc)
     for (int kk = 0; kk < KSTEPS; ++kk)
       issue(acc, kc * CHUNKS_PER_LAYER + kk, desc + 2 * kk, (kc | kk) ? 1 : 0);
     wgmma_commit();
-    if (kc == kPass && lane0) mbar_arrive(r.turn_bar(wg ^ 1));
+    if (TURNS && kc == kPass && lane0) mbar_arrive(r.turn_bar(wg ^ 1));
     if (kc > 0) {
       wgmma_wait<1>();
       if (lane0) mbar_arrive(r.empty_bar(prev));

@@ -9,9 +9,9 @@ Max abs error 3.4e-6 over arguments in [-45, 45] in fp32. The constants,
 the range reduction and the order of every fp32 operation are the JAX
 package's, so on fp32 inputs the two agree to the bit (tests hold that).
 Its gradient is `fast_cos` of the same reduced argument, as the JAX
-function's custom JVP defines it. The CUDA study kernel
-(csrc/film_siren_study.cu) evaluates the same polynomial, with `rintf` for
-the round.
+function's custom JVP defines it. The CUDA study kernels
+(csrc/film_siren_study.cu) evaluate the same polynomial, rounding half to
+even by the trunk's 1.5 x 2^23 shift.
 """
 
 from __future__ import annotations

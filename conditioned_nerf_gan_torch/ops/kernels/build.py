@@ -4,9 +4,12 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into `_build/<name>-<hash>.so`, beside the package in
 a directory that .gitignore lists. The hash covers the source, every shared
 header `csrc/*.cuh` and the flags, so an edited source or header is never
-served by a stale library. The TMA kernels reach the tensor-map encoder, a
-libcuda function, through the runtime (`cudaGetDriverEntryPoint`), so no
-flag links libcuda. Nothing here runs at import time: the CPU tests import
+served by a stale library. A source whose line `// nvcc parts: P` names P
+translation units is compiled P times, with `-DNVCC_PART=0` .. `P-1`, into
+objects linked into one library: ptxas takes one kernel at a time, so a
+library of many large kernels builds P times sooner. The TMA kernels reach
+the tensor-map encoder, a libcuda function, through the runtime
+(`cudaGetDriverEntryPoint`), so no flag links libcuda. Nothing here runs at import time: the CPU tests import
 every module, and the host may have no `nvcc`.
 """
 
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -63,9 +67,31 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def parts(name: str) -> int:
+    """The translation units `csrc/<name>.cu` is compiled in (its `// nvcc
+    parts: P` line; 1 without one)."""
+    found = re.search(r"^// nvcc parts: (\d+)$", (CSRC / f"{name}.cu").read_text(), re.M)
+    return int(found.group(1)) if found else 1
+
+
+def commands(name: str, tmp: Path) -> tuple[list[list[str]], list[str] | None]:
+    """The nvcc commands that build `csrc/<name>.cu` into `tmp`: one that
+    compiles and links it, or one per part (`-c`, into `tmp`'s `.part<p>.o`)
+    and the link of their objects."""
+    src = str(CSRC / f"{name}.cu")
+    n = parts(name)
+    if n == 1:
+        return [[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), src]], None
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objects = [str(tmp.with_suffix(f".part{p}.o")) for p in range(n)]
+    compiles = [[_nvcc(), *compile_flags, "-c", f"-DNVCC_PART={p}", "-o", obj, src]
+                for p, obj in enumerate(objects)]
+    return compiles, [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objects]
+
+
 def load_libraries(*names: str) -> list[KernelLibrary]:
-    """Compile every missing `csrc/<name>.cu`, one nvcc each, all started
-    together; then load them all."""
+    """Compile every missing `csrc/<name>.cu` (one nvcc each, or one a part),
+    all started together; then load them all."""
     started = {}
     for name in names:
         if name in _LOADED:  # the hash reads every source: once per process
@@ -75,14 +101,35 @@ def load_libraries(*names: str) -> list[KernelLibrary]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-        started[name] = (proc, tmp, out, time.perf_counter())
-    for name, (proc, tmp, out, t0) in started.items():
-        log = proc.communicate()[0]
+        compiles, link = commands(name, tmp)
+        logs = [tmp.with_suffix(f".{p}.log") for p in range(len(compiles))]
+        procs = []
+        for cmd, log in zip(compiles, logs):
+            with log.open("w") as sink:
+                procs.append(subprocess.Popen(cmd, stdout=sink, stderr=subprocess.STDOUT))
+        started[name] = (procs, logs, link, tmp, out, time.perf_counter())
+    ends = {(name, p): None for name, entry in started.items() for p in range(len(entry[0]))}
+    while None in ends.values():  # each part's time, for the log
+        for (name, p), end in ends.items():
+            if end is None and started[name][0][p].poll() is not None:
+                ends[name, p] = time.perf_counter() - started[name][5]
+        time.sleep(0.05)
+    for name, (procs, paths, link, tmp, out, t0) in started.items():
+        failed = any(proc.returncode != 0 for proc in procs)
+        logs = [(f"part {p}: {ends[name, p]:.2f} s\n" if link else "") + path.read_text()
+                for p, path in enumerate(paths)]
+        for path in paths:
+            path.unlink()
+        if link and not failed:
+            linked = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            logs.append(linked.stdout)
+            failed = linked.returncode != 0
+            for obj in link[link.index(str(tmp)) + 1:]:
+                Path(obj).unlink(missing_ok=True)
+        log = "".join(logs)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
+        if failed:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
         os.replace(tmp, out)

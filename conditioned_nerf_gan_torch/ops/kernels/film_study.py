@@ -29,10 +29,13 @@ The head is bf16(h) . bf16(Wf) + bf in every mode.
     `film_siren_study.launches[kernel]` counts launches.
 
 Tiles: a TPU tile of 512 / 1,024 / 2,048 points is a VMEM block; on the H100
-a CTA holds one layer's fp32 output for at most 128 points in registers, so
-the study's tiles map by 1/16 to 32 / 64 / 128 points per CTA. The library
-compiles the instances the study launches (its list is in the .cu file) and
-the wrapper raises for any other.
+a consumer thread holds T fp32 accumulators for a tile of T points (128 at
+T 128, past 240 registers at 256), so the study's tiles map by 1/16 to 32 /
+64 / 128 points per CTA. Point-major (K3) tiles are wgmma's M, 64 points a
+warpgroup: 128 (two warpgroups taking turns, K1's arrangement) or 64 (both
+warpgroups splitting the units); K4 v4 takes 32, 64 and 128, v5 64 and 128
+(half a tile a warpgroup). The library compiles the instances the study
+launches (its list is in the .cu file) and the wrapper raises for any other.
 """
 
 from __future__ import annotations
@@ -118,6 +121,8 @@ def film_siren_study(points, freq, phase, w0, b0, ws, bs, wf, bf, kernel="v3", m
     _check_kernel_inputs(*args, name="film_siren_study", widths=(KERNEL_IN,))
     fn = _c_function("film_siren_study", "film_siren_study", 7, 8)
     w0f, c, wsf = _fold_for_kernel(freq, phase, w0, b0, ws, bs)
+    # the trunk's weights are K-major, (B, L-1, H_out, H_in), as K1's
+    wsf_t = wsf.transpose(-1, -2).contiguous()
     wf16 = wf.to(torch.bfloat16).contiguous()
     bf = bf.contiguous()
     B, N, _ = points.shape
@@ -125,7 +130,7 @@ def film_siren_study(points, freq, phase, w0, b0, ws, bs, wf, bf, kernel="v3", m
     out = torch.empty(B, N, KERNEL_OUT, dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):  # launch on the tensors' card
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = fn(points.data_ptr(), w0f.data_ptr(), c.data_ptr(), wsf.data_ptr(),
+        err = fn(points.data_ptr(), w0f.data_ptr(), c.data_ptr(), wsf_t.data_ptr(),
                  wf16.data_ptr(), bf.data_ptr(), out.data_ptr(), LAYOUT_IDS[kernel],
                  ACT_IDS[act0], ACT_IDS[act], int(dot), tile, B, N, c.shape[1], stream)
     if err == _NO_INSTANCE:

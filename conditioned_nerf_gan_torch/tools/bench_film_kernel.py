@@ -22,12 +22,18 @@ split K1's time between the tensor-core products and the sin epilogues:
 The default set is `xla v2 single nosin nodot`.
 
 Tiles: the JAX names carry the TPU tile (points per VMEM block: 512, 1,024,
-2,048). On the H100 one CTA holds one layer's output for at most 128 points
-in registers, so the tiles map by 1/16 to 32, 64 and 128 points per CTA,
-and each line is named by that Hopper tile (e.g. `single` prints
-`v3_single_64`). The JAX script's other names are refused (exit 2) with the
-reason (`REFUSED`): its 4,096-point tiles (`single4096`, `v4_4096`) and its
-backward-tile sweep (`vjp_kernel_512`, `vjp_kernel_2048`).
+2,048). On the H100 a consumer thread of the study kernels holds T fp32
+accumulators for a tile of T points per CTA, so the tiles map by 1/16 to
+32, 64 and 128 points per CTA, and each line is named by that Hopper tile
+(e.g. `single` prints `v3_single_64`). Point-major (K3) tiles are wgmma's
+M, 64 points a warpgroup: 128 (K1's arrangement, two warpgroups taking
+turns) or 64 (both warpgroups splitting the units of one tile, in turn
+with h staged in shared memory); K4 v4 runs at 32, 64 and 128 points (the
+N of its products), v5 at 64 and 128 (half a tile a warpgroup). The JAX
+script's other names are refused (exit 2) with the reason (`REFUSED`):
+`single512` (32 points is half a warpgroup's M), its 4,096-point tiles
+(`single4096`, `v4_4096`) and its backward-tile sweep (`vjp_kernel_512`,
+`vjp_kernel_2048`).
 
 Protocol, as the JAX script's: the inputs from `make_inputs(seed)` (the same
 numpy draws in the same order), 20 chained iterations per trial, each
@@ -105,7 +111,6 @@ VARIANTS = {
     "v2": ("k1_fwd_128", film_siren_mlp),
     "single": ("v3_single_64", _study("v3", "single", 64)),
     "single2048": ("v3_single_128", _study("v3", "single", 128)),
-    "single512": ("v3_single_32", _study("v3", "single", 32)),
     "nosin": ("v3_nosin_64", _study("v3", "nosin", 64)),
     "nodot": ("v3_nodot_64", _study("v3", "nodot", 64)),
     "jnpsin": ("v3_jnpsin_64", _study("v3", "jnpsin", 64)),
@@ -119,15 +124,18 @@ VARIANTS = {
     "v5_sin7_1024": ("v5_interleave_64", _study("v5", "interleave", 64)),
 }
 # the JAX script's tile sweeps
-SWEEPS = ("single512", "single2048", "v4", "v4_512", "v4_2048", "v5", "v5_sin7_1024")
-_TILE_256 = ("a 4,096-point TPU tile would be 256 points per CTA, whose fp32 layer output "
-             "(256 KB) fills the whole register file; larger tiles wait for the wgmma "
-             "redesign of K1 (ROADMAP.md B)")
+SWEEPS = ("single2048", "v4", "v4_512", "v4_2048", "v5", "v5_sin7_1024")
+_TILE_32 = ("a 512-point TPU tile would be 32 points per CTA, but a point-major tile is "
+            "wgmma's M, 64 points a warpgroup: K3 runs at 64 and 128 points "
+            "(ROADMAP.md B)")
+_TILE_256 = ("a 4,096-point TPU tile would be 256 points per CTA: 256 fp32 accumulators a "
+             "consumer thread, past the 240 registers it gets, and 256 KB of "
+             "double-buffered h in shared memory (ROADMAP.md B)")
 _BWD_TILE = ("the TPU backward-tile sweep has no counterpart: K2's tile is fixed at 128 "
              "points and its 4,096-point weight-grad segment is not a setting "
              "(ROADMAP.md B); `vjp_kernel` runs K1 + K2")
 # names of the JAX script the port does not run, and why
-REFUSED = {"single4096": _TILE_256, "v4_4096": _TILE_256,
+REFUSED = {"single512": _TILE_32, "single4096": _TILE_256, "v4_4096": _TILE_256,
            "vjp_kernel_512": _BWD_TILE, "vjp_kernel_2048": _BWD_TILE}
 
 

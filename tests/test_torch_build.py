@@ -2,7 +2,9 @@
 
 A library is named by the hash of its source, of every shared header beside
 it and of the compiler flags, so an edited header is never served by a stale
-library. Naming reads files only: these tests run without nvcc.
+library. Naming reads files only: these tests run without nvcc. A source
+that names its translation units (`// nvcc parts: P`) is compiled once a
+part and linked; the commands are checked here without running them.
 """
 
 import pytest
@@ -71,3 +73,34 @@ def test_every_kernel_of_the_package_is_named_without_nvcc(monkeypatch, name):
     path = build._library_path(name)
     assert path.parent == build.BUILD_DIR and path.name.startswith(f"{name}-")
     assert path.suffix == ".so"
+
+
+def test_one_part_is_one_command(csrc, monkeypatch):
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    assert build.parts("first") == 1
+    tmp = csrc / "first.tmp"
+    compiles, link = build.commands("first", tmp)
+    assert link is None
+    assert compiles == [["nvcc", *build.NVCC_FLAGS, "-o", str(tmp), str(csrc / "first.cu")]]
+
+
+def test_parts_compile_apart_and_link_once(csrc, monkeypatch):
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    (csrc / "first.cu").write_text('#include "shared.cuh"\n// nvcc parts: 3\n')
+    assert build.parts("first") == 3
+    tmp = csrc / "first.tmp"
+    compiles, link = build.commands("first", tmp)
+    objects = [str(csrc / f"first.part{p}.o") for p in range(3)]
+    assert [cmd[cmd.index("-o") + 1] for cmd in compiles] == objects
+    for p, cmd in enumerate(compiles):
+        assert "-c" in cmd and f"-DNVCC_PART={p}" in cmd and "-shared" not in cmd
+        assert cmd[-1] == str(csrc / "first.cu") and "-Xptxas" in cmd
+    assert link[0] == "nvcc" and "-shared" in link and "sm_90a" in " ".join(link)
+    assert link[link.index("-o") + 1:] == [str(tmp), *objects]
+
+
+def test_the_study_library_is_built_in_parts():
+    """The study library's 16 kernels take ptxas one at a time: 8 parts."""
+    assert build.parts("film_siren_study") == 8
+    assert all(build.parts(name) == 1 for name in
+               ("film_siren_fwd", "film_siren_bwd", "trilinear_fwd", "trilinear_bwd"))

@@ -542,7 +542,8 @@ def test_trilinear_kernel_refuses_what_it_does_not_take(volume_coords):
         tgs.trilinear_point_features(vol, coords.cpu())
 
 
-# every instance the study launches, and every mode at 128 points per CTA
+# every instance the study launches, and every mode at 128 points per CTA, at
+# a small N and a ragged one (a tile of each, v5's half tiles, the tail)
 STUDY_CASES = [(k, m, t, n) for k, m, t in kernel_instances() for n in (256, 1000)]
 
 
@@ -576,3 +577,6 @@ def test_study_kernel_refuses_an_uncompiled_instance():
     args = [torch.from_numpy(v).cuda() for v in make_inputs(0, 256).values()]
     with pytest.raises(ValueError, match="no instance of v4 sin7 at 32 points"):
         tstudy.film_siren_study(*args, kernel="v4", mode="sin7", tile=32)
+    # point-major tiles are wgmma's M, 64 points a warpgroup: no 32
+    with pytest.raises(ValueError, match="no instance of v3 single at 32 points"):
+        tstudy.film_siren_study(*args, kernel="v3", mode="single", tile=32)

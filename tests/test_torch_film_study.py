@@ -23,6 +23,7 @@ from jax.experimental import pallas as pl
 from conditioned_nerf_gan_tpu.ops.fastmath import fast_cos as j_fast_cos
 from conditioned_nerf_gan_tpu.ops.fastmath import fast_sin as j_fast_sin
 from conditioned_nerf_gan_torch.ops.fastmath import fast_cos, fast_sin
+from conditioned_nerf_gan_torch.ops.kernels import build
 import conditioned_nerf_gan_torch.ops.kernels.film_study as fs
 from conditioned_nerf_gan_torch.ops.kernels.film_siren import film_siren_mlp_folded
 from conditioned_nerf_gan_torch.tools import bench_film_kernel as tool
@@ -92,6 +93,43 @@ def test_plain_version_matches_jax_body(jax_study, monkeypatch, kernel, mode):
     print(f"{kernel} {mode}: max|port - JAX| / max(1, max|JAX|) {err:.2e}, "
           f"max|JAX| {np.abs(ref).max():.3g}")
     assert err <= STUDY_TOL
+
+
+# the JAX variants the port runs on a study kernel, each at its own TPU tile
+TILE_VARIANTS = sorted(name for name, (_, fn) in tool.VARIANTS.items()
+                       if getattr(fn, "func", None) is fs.film_siren_study)
+# observed max|port - JAX| / max(1, max|JAX|) at 2 TPU tiles a batch element
+# (1,024-4,096 points, freq/30): 3.8e-4 (nodot modes) to 2.75e-3 (single2048,
+# v4_2048): STUDY_TOL's flipped bf16 roundings over 16-64x the points of its
+# N 64, so a larger max. Both sides are as far from the same math with fp64
+# sums (the JAX bodies 2.1e-3-3.4e-3, the port 1.4e-3-3.2e-3), and the JAX
+# bodies give the same outputs at tile 32 (v5 aside, whose half-tile dots
+# change shape). About twice the largest reading, far below the O(0.1-1) of
+# a tile that changed the function.
+TILE_TOL = 6e-3
+
+
+@pytest.mark.parametrize("name", TILE_VARIANTS)
+def test_jax_variant_at_its_own_tile_matches_plain_version(jax_study, monkeypatch, name):
+    """Each JAX variant the port runs, at its own TPU tile (2 tiles a batch
+    element, interpret mode), against the port's plain version of its
+    (kernel, mode): a tile does not change the function, on which the
+    port's 1/16 tile map rests."""
+    monkeypatch.setattr(jax_study, "pl", _InterpretPallas())
+    jlabel, jfn = jax_study.VARIANTS[name]()
+    tpu_tile = int(jlabel.rsplit("_", 1)[1])
+    assert jfn.keywords["tile"] == tpu_tile
+    kw = tool.VARIANTS[name][1].keywords
+    arrays = tool.make_inputs(0, 2 * tpu_tile)
+    arrays["freq"] = (arrays["freq"] / np.float32(30)).astype(np.float32)
+    ref = np.asarray(jfn(*(jnp.asarray(arrays[k]) for k in tool.ARGS)))
+    port = fs.film_study_reference(*(torch.from_numpy(arrays[k]) for k in tool.ARGS),
+                                   kernel=kw["kernel"], mode=kw["mode"]).numpy()
+    assert port.shape == ref.shape == (2, 2 * tpu_tile, 4)
+    err = np.abs(port - ref).max() / max(1.0, np.abs(ref).max())
+    print(f"{name} (TPU tile {tpu_tile}, Hopper tile {kw['tile']}): max|port - JAX| / "
+          f"max(1, max|JAX|) {err:.2e}")
+    assert err <= TILE_TOL
 
 
 def test_mode_functions():
@@ -168,10 +206,14 @@ def test_wrapper_on_cpu_and_refusals():
         fs.film_siren_study(*t, kernel="v6", mode="single")
     with pytest.raises(ValueError, match="no kernel"):
         fs.film_siren_study(*(a.to("meta") for a in t), kernel="v3", mode="single")
-    # the study launches every (kernel, mode), at tiles a CTA holds
+    # the study launches every (kernel, mode), at tiles a CTA holds: point-
+    # major at wgmma's M (64 points a warpgroup), v5 at half a tile a
+    # warpgroup
     instances = tool.kernel_instances()
     assert {(k, m) for k, m, _ in instances} == set(PAIRS)
-    assert {t for _, _, t in instances} == {32, 64, 128}
+    tiles = {k: {t for kk, _, t in instances if kk == k} for k in fs.STUDY_MODES}
+    assert tiles == {"v3": {64, 128}, "v4": {32, 64, 128}, "v5": {64, 128}}
+    assert len(instances) == 16
 
 
 def _cu_enum(source: str, name: str) -> dict[str, int]:
@@ -202,6 +244,68 @@ def test_library_compiles_the_instances_the_study_launches():
         a0, a, dot = fs.STUDY_MODES[kernel][mode]
         needed.add((fs.LAYOUT_IDS[kernel], tile, fs.ACT_IDS[a0], fs.ACT_IDS[a], dot))
     assert compiled == needed
+    # compiled in parallel, two instances a translation unit, the entry in
+    # part 0 asking every part
+    parts = build.parts("film_siren_study")
+    blocks = re.findall(r"^#(?:el)?if NVCC_PART == (\d+)\n((?:  STUDY_CASE\(.*\)\n)+)",
+                        source, re.M)
+    assert [int(p) for p, _ in blocks] == list(range(parts)) and parts == 8
+    assert all(body.count("STUDY_CASE") == 2 for _, body in blocks)
+    entry = source[source.index('extern "C" int film_siren_study('):]
+    assert all(f"film_study_part{p}" in entry for p in range(parts))
+
+
+def _cu_constants(source: str, names) -> dict[str, float]:
+    return {n: float(re.search(rf"constexpr float {n} = ([-+.e0-9]+)f;", source).group(1))
+            for n in names}
+
+
+def test_kernel_fast_sin_is_fastmath_fast_sin():
+    """The study kernels' fast_sin coefficients are ops/fastmath.py's."""
+    import conditioned_nerf_gan_torch.ops.fastmath as fm
+
+    source = (Path(fs.__file__).resolve().parents[2] / "csrc"
+              / "film_siren_study.cu").read_text()
+    found = _cu_constants(source, [f"F{k}" for k in (1, 3, 5, 7, 9, 11)])
+    assert found == {f"F{k}": getattr(fm, f"_C{k}") for k in (1, 3, 5, 7, 9, 11)}
+
+
+def _fma32(a, b, c):
+    """fp32 fma: the exact product of two fp32 values fits a float64."""
+    return (np.float64(a) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(
+        np.float32)
+
+
+def test_kernel_accurate_sin_replica_within_two_ulp():
+    """`jnpsin`'s accurate sin (csrc/film_siren_study.cu `sin_accurate`),
+    replayed in numpy from the constants in the source, op for op: within 2
+    ulp of sin up to the limit of its reduction (torch.sin, which is sinf,
+    is within 1)."""
+    source = (Path(fs.__file__).resolve().parents[2] / "csrc"
+              / "film_siren_study.cu").read_text()
+    body = source[source.index("float sin_accurate("):]
+    body = body[:body.index("\n}\n")]
+    k = [np.float32(v) for v in re.findall(r"([-+]?\d+\.\d+(?:e[-+]?\d+)?)f", body)]
+    shift, inv_pio2, p1, p2, p3, s9, s7, s5, s3, c8, c6, c4, c2, c0 = k
+    limit = float(re.search(r"kSinLimit = ([.0-9]+)f", source).group(1))
+    x = np.concatenate([np.random.default_rng(0).uniform(-limit, limit, 400_000),
+                        np.random.default_rng(1).uniform(-50, 50, 400_000),
+                        np.arange(-40, 41) * np.pi / 4]).astype(np.float32)
+    t = _fma32(x, inv_pio2, shift)
+    q = t.view(np.int32)
+    qf = (t - shift).astype(np.float32)
+    r = _fma32(-qf, p1, x)
+    r = _fma32(-qf, p2, r)
+    r = _fma32(-qf, p3, r)
+    s = (r * r).astype(np.float32)
+    sn = _fma32(_fma32(_fma32(s9, s, s7), s, s5), s, s3)
+    sn = _fma32((sn * s).astype(np.float32), r, r)
+    cs = _fma32(_fma32(_fma32(_fma32(c8, s, c6), s, c4), s, c2), s, c0)
+    v = np.where(q & 1, cs, sn)
+    v = np.where(q & 2, -v, v)
+    exact = np.sin(x.astype(np.float64))
+    ulp = np.spacing(np.abs(exact).astype(np.float32)).astype(np.float64)
+    assert (np.abs(v - exact) / ulp).max() <= 2.0
 
 
 def test_every_jax_variant_has_a_port(jax_study):
@@ -212,6 +316,8 @@ def test_every_jax_variant_has_a_port(jax_study):
     ported = set(tool.VARIANTS) | set(tool.VJP_VARIANTS)
     assert names == ported | set(tool.REFUSED) and not ported & set(tool.REFUSED)
     assert all("ROADMAP.md B" in why for why in tool.REFUSED.values())
+    assert set(tool.REFUSED) == {"single512", "single4096", "v4_4096", "vjp_kernel_512",
+                                 "vjp_kernel_2048"}
     assert set(tool.DEFAULT_VARIANTS) | set(tool.SWEEPS) <= ported
     assert tool.DEFAULT_VARIANTS == ("xla", "v2", "single", "nosin", "nodot")
     for name, make in jax_study.VARIANTS.items():
@@ -238,3 +344,7 @@ def test_cli_on_cpu(capsys):
     captured = capsys.readouterr()
     assert not captured.out and "vjp_kernel_2048: not run" in captured.err
     assert "ROADMAP.md B" in captured.err
+    assert tool.main(["--device", "cpu", "--n", "256", "single512"]) == 2
+    captured = capsys.readouterr()
+    assert not captured.out and "single512: not run" in captured.err
+    assert "wgmma's M" in captured.err
