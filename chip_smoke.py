@@ -11,8 +11,9 @@ Refuses to run without CUDA (exit 1). Otherwise:
   1. holds the FiLM-SIREN kernel against its plain torch version
      (`film_siren_mlp_folded`, same bf16-operand math) at the thesis render
      shape, at the training chunk (12 x 49,152, where most of its main-path
-     launches run), at the serving ray chunk and at a ragged N, and times
-     both with CUDA events, each time beside its bound and kernel / bound;
+     launches run), at stage 0's unchunked batch (24 x 49,152), at the
+     serving ray chunk and at a ragged N, and times both with CUDA events,
+     each time beside its bound and kernel / bound;
  1b. the same at the voxel family's shape (Din 32, 8 layers) at 2 x 786,432,
      at the `dg` training chunk (12 x 49,152), at its serving ray chunk
      (2 x 49,152) and a ragged 2 x 1,000;
@@ -28,8 +29,8 @@ Refuses to run without CUDA (exit 1). Otherwise:
      the request's wall time, and the kernels that take the most of it;
   4. holds the FiLM-SIREN backward kernel against its plain torch version
      (`film_siren_mlp_folded_vjp`, same bf16 roundings) at the 1.57M-point
-     study shape, at the training chunk the main path gives it and at a
-     ragged N: norm-relative error, a low-frequency max, distance to fp64
+     study shape, at the training chunk the main path gives it, at stage
+     0's unchunked batch (24 x 49,152) and at a ragged N: norm-relative error, a low-frequency max, distance to fp64
      sums against the plain version's, bitwise-equal repeats; and times both,
      beside the bound;
  4b. the same at the voxel family's shape (Din 32, 8 layers: TALLSIREN_FG's
@@ -90,15 +91,30 @@ Refuses to run without CUDA (exit 1). Otherwise:
      same step with the plain versions in every kernel's place, one
      profiled step (the dV scatters' device time), one step whose ops on a
      tensor of dV's shape are counted (one zeroing a render with grad, no
-     sum), and the step's dV path (that zeroing and the scatters).
+     sum), and the step's dV path (that zeroing and the scatters);
+ 10. drives the train CLI (`conditioned_nerf_gan_torch.train.main`, the
+     Trainer) on the card: writes the port's synthetic fixture on the card
+     (6 cars x 8 views at 128^2, clouds of 65,536 points, 64^3 voxel
+     grids), trains the thesis preset at full width through all four
+     curriculum stages compressed to 3 steps each (32^2, 64^2, 128^2,
+     128^2; every per-stage key the preset's own) to step 11 with stats,
+     sample grids, val losses and checkpoints, printing each stage's
+     s/step, peak memory and launches of K1 and K2 per step against the
+     count derived from its config; resumes a second run from the step-5
+     checkpoint to step 8 (its step, loader position and stage the
+     uninterrupted run's, its losses within RESUME_LOSS_TOL); trains the
+     dg preset across its first milestone (2 steps at stages 0 and 1,
+     launches of all four kernels per step against the design); and
+     renders one image grid from the thesis run's checkpoint through the
+     infer CLI.
 Prints one JSON line of kernel results (each kernel's time beside its plain
 version's, the least time the card could take for the same work, and the
 one PyTorch call that computes the same function where there is one; K1 and
 K2 and the trilinear kernels at the training chunk, the other shapes under
 `ms_by_shape`), then
 the last line {"ok": true, "device": {...}}. Any failed check raises
-(non-zero exit); checks of phases 1b and 4-9 raise after phase 9, so one run
-reports them all.
+(non-zero exit); checks of phases 1b and 4-10 raise after phase 10, so one
+run reports them all.
 """
 
 from __future__ import annotations
@@ -109,6 +125,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -242,7 +259,21 @@ ACT_INSTRUCTIONS = {"fast_sin": 12, "sin7": 10, "sin": 20, "affine": 2}
 REQUESTS = 4
 BATCH = 2
 IMAGE_SIZE = 128
+# the thesis curriculum's stage 0: batch 24 at 32^2, 48 + 48 samples,
+# unchunked, so K1 and K2 take 24 x 49,152 points a call
+STAGE0_N = 32 * 32 * 48
 PCL_POINTS = 2048
+# Phase 10: the fixture the trainer reads (the port's writer, on the card):
+# 65,536 points a cloud, so num_points_ratio 1.0 gives the stage-2 bench's
+# 65,536, and the voxel family's 64^3 grids
+TRAINER_FIXTURE = dict(n_cars=6, n_views=8, img_size=128, n_points=65536,
+                       voxel_resolutions=(64,))
+THESIS_STAGE_STEPS = 3  # milestones at steps 0, 3, 6 and 9
+THESIS_STOP = 11
+DG_STAGE_STEPS = 2  # the dg run: stages 0 and 1, 2 steps each
+# the resumed run's losses at steps 6-8 against the uninterrupted run's,
+# relative; twice the largest difference observed on the H100 [in brackets]
+RESUME_LOSS_TOL = 5.5e-4  # [2.74e-4; 1.94e-4 in another run]
 
 
 def run(cmd: list[str]) -> str:
@@ -484,8 +515,8 @@ def phase1_kernel(device) -> dict:
 
     chunk_n = IMAGE_SIZE * IMAGE_SIZE // 16 * 48
     shapes = [("thesis render", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
-              ("training chunk", 12, chunk_n), ("main-path ray chunk", 2, chunk_n),
-              ("ragged", 2, 1000)]
+              ("training chunk", 12, chunk_n), ("stage-0 batch", 24, STAGE0_N),
+              ("main-path ray chunk", 2, chunk_n), ("ragged", 2, 1000)]
     worst, timed = 0.0, {}
     with torch.no_grad():
         for label, B, N in shapes:
@@ -817,7 +848,7 @@ def phase4_bwd(device, failures: list) -> dict:
 
     shapes = [("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
               ("training chunk", 12, IMAGE_SIZE * IMAGE_SIZE // 16 * 48),
-              ("ragged", 2, 1000)]
+              ("stage-0 batch", 24, STAGE0_N), ("ragged", 2, 1000)]
     worst, timed = 0.0, {}
     for label, B, N in shapes:
         inp, g = bwd_inputs(B, N, seed=0, device=device)
@@ -1793,13 +1824,281 @@ def phase8_study(device, failures: list, k1_ms: float) -> tuple[list, dict]:
     return rows, launches
 
 
+def design_launches(cfg) -> tuple[int, int, int, int]:
+    """Launches per train step of K1, K2, the trilinear kernel and its
+    backward, from a TrainStepConfig: each render makes `calls` SIREN calls
+    (coarse and fine per ray chunk; each reads the feature volume first in
+    the voxel family). The D step renders once without grad; each of the G
+    step's batch splits renders with grad, and a chunked render recomputes
+    every chunk in the backward (checkpoint); one backward a G-render call."""
+    r = cfg.render
+    chunks = max(r.ray_chunks, 1)
+    calls = chunks * (2 if r.hierarchical_sample else 1)
+    g_forward = calls * (2 if chunks > 1 else 1)
+    k1 = (calls if cfg.enable_discriminator else 0) + cfg.batch_split * g_forward
+    k2 = cfg.batch_split * calls
+    voxel = cfg.load_voxel and not cfg.load_pcl
+    return k1, k2, k1 if voxel else 0, k2 if voxel else 0
+
+
+def compressed_curriculum(config: str | None, steps_per_stage: int, dataset: Path) -> dict:
+    """The preset's curriculum with its milestones at 0, steps_per_stage,
+    2 x steps_per_stage, ... and every per-stage key its own (as
+    scripts/regression_curriculum.py compresses it), reading `dataset`."""
+    from conditioned_nerf_gan_torch.config import load_curriculum
+
+    cur = load_curriculum(config_base="thousand", config=config)
+    stages = sorted(k for k in cur if isinstance(k, int))
+    cur.update({i * steps_per_stage: cur.pop(k) for i, k in enumerate(stages)})
+    cur["dataset"]["path"] = str(dataset)
+    return cur
+
+
+class TrainerProbe:
+    """Records each Trainer train step: its step, stage image size, loader
+    position, synchronised seconds, peak memory (reset before the step) and
+    the launches of each kernel counter in it, with the design's count for
+    the stage; and the Trainer objects a run builds."""
+
+    def __init__(self, counters):
+        from conditioned_nerf_gan_torch.training import trainer as trainer_module
+
+        self.module, self.counters = trainer_module, counters
+        self.steps: list[dict] = []
+        self.trainers: list = []
+
+    def __enter__(self):
+        Trainer = self.module.Trainer
+        self._saved = (Trainer.train_step, Trainer.load_models)
+        train_step, load_models = self._saved
+        probe = self
+
+        def probed_step(trainer, batch):
+            before = [c.launches for c in probe.counters]
+            position = (trainer._loader_epoch, trainer._batch_offset)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            train_step(trainer, batch)
+            torch.cuda.synchronize()
+            probe.steps.append(dict(
+                step=trainer.step, img=trainer.metadata["img_size"], position=position,
+                s=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=tuple(c.launches - b for c, b in zip(probe.counters, before)),
+                design=design_launches(trainer.step_config)))
+
+        def probed_load(trainer):
+            probe.trainers.append(trainer)
+            return load_models(trainer)
+
+        Trainer.train_step, Trainer.load_models = probed_step, probed_load
+        return self
+
+    def __exit__(self, *exc):
+        self.module.Trainer.train_step, self.module.Trainer.load_models = self._saved
+        return False
+
+
+def print_stages(label: str, steps: list[dict], milestones: list[int], failures: list,
+                 names=("K1", "K2")) -> list[dict]:
+    """Per stage: s/step (the stage's first step, and the mean of the
+    rest), peak memory, launches per step against the design; every step's
+    launches must equal the design's."""
+    rows = []
+    for i, start in enumerate(milestones):
+        end = milestones[i + 1] if i + 1 < len(milestones) else 1 << 30
+        stage = [s for s in steps if start <= s["step"] < end]
+        if not stage:
+            continue
+        rest = [s["s"] for s in stage[1:]] or [stage[0]["s"]]
+        launches = stage[-1]["launches"][:len(names)]
+        row = dict(stage=i, img=stage[0]["img"], steps=len(stage), first_s=stage[0]["s"],
+                   s_per_step=float(np.mean(rest)), peak_gib=max(s["peak"] for s in stage),
+                   launches=dict(zip(names, launches)))
+        rows.append(row)
+        print(f"{label} stage {i} (steps {stage[0]['step']}-{stage[-1]['step']}, "
+              f"{row['img']}^2): {row['s_per_step']:.4f} s/step (mean of steps after the "
+              f"first; first {row['first_s']:.4f} s), peak {row['peak_gib']:.3f} GiB, "
+              "launches per step " + ", ".join(
+                  f"{n} {c}" for n, c in zip(names, launches))
+              + " (design " + ", ".join(
+                  f"{n} {c}" for n, c in zip(names, stage[-1]["design"])) + ")")
+        for s in stage:
+            if s["launches"][:len(names)] != s["design"][:len(names)]:
+                failures.append(f"{label} step {s['step']}: launches {s['launches']}, "
+                                f"design {s['design']}")
+    return rows
+
+
+def phase10_trainer(device, build_dir, failures: list) -> dict:
+    """The train CLI on the card: the port's fixture written on the card,
+    the thesis preset through all four curriculum stages (compressed to
+    THESIS_STAGE_STEPS steps a stage), a resume from its step-5 checkpoint,
+    the dg preset across its first milestone, and one image grid through
+    the infer CLI from a trainer checkpoint. Returns the kernels' launches
+    of each run (the counters set to 0 just before it)."""
+    from conditioned_nerf_gan_torch import train
+    from conditioned_nerf_gan_torch.config import curriculum_to_json
+    from conditioned_nerf_gan_torch.data.synthetic import make_synthetic_shapenet
+    from conditioned_nerf_gan_torch.infer.__main__ import main as infer_main
+    from conditioned_nerf_gan_torch.ops.grid_sample import trilinear_point_features
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp,
+        film_siren_mlp_bwd,
+    )
+    from conditioned_nerf_gan_torch.ops.kernels.trilinear import trilinear_bwd
+    from conditioned_nerf_gan_torch.utils.png import read_png
+
+    counters = (film_siren_mlp, film_siren_mlp_bwd, trilinear_point_features, trilinear_bwd)
+
+    def take_counts():
+        counts = tuple(c.launches for c in counters)
+        for c in counters:
+            c.launches = 0
+        return counts
+
+    print("phase 10: precision: PointNet, D and the U-Net in fp32 with TF32 off (this "
+          "script's comparator setting, for the whole process; the trainer itself "
+          "leaves TF32 at PyTorch's default), the SIRENs through K1 and K2 (bf16 "
+          "products, fp32 sums, sin7)")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ds_root = make_synthetic_shapenet(tmp / "data", **TRAINER_FIXTURE, device=device)
+        print(f"phase 10: fixture {TRAINER_FIXTURE} written on the card in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # the thesis preset through its four stages
+        sps = THESIS_STAGE_STEPS
+        run1 = tmp / "thesis"
+        run1.mkdir()
+        cur = compressed_curriculum(None, sps, ds_root)
+        curriculum_to_json(cur, run1 / "curriculum.json")
+        milestones = sorted(k for k in cur if isinstance(k, int))
+        flags = ["-p", str(sps), "-s", str(2 * sps), "-e", str(2 * sps), "--device", str(device)]
+        take_counts()
+        t0 = time.perf_counter()
+        with TrainerProbe(counters) as probe:
+            rc = train.main(["-o", str(run1), "--stop_step", str(THESIS_STOP), *flags])
+        thesis_counts = take_counts()
+        print(f"phase 10: thesis run, milestones {milestones}, stop_step {THESIS_STOP}: "
+              f"rc {rc} in {time.perf_counter() - t0:.2f} s; launches over the run (the "
+              f"steps, sample grids and val losses) K1 {thesis_counts[0]}, K2 "
+              f"{thesis_counts[1]}")
+        if rc != 0:
+            failures.append(f"phase 10: the thesis run returned {rc}")
+        stages = print_stages("phase 10 thesis", probe.steps, milestones, failures)
+        first = probe.trainers[0]
+        sizes = [s["img"] for s in stages]
+        if sizes != [32, 64, 128, 128]:
+            failures.append(f"phase 10: the thesis run's stages ran at {sizes}, not "
+                            "32, 64, 128, 128")
+        if [s["step"] for s in probe.steps] != list(range(THESIS_STOP + 1)):
+            failures.append(f"phase 10: the thesis run took steps "
+                            f"{[s['step'] for s in probe.steps]}")
+        saves = sorted(int(p.stem) for p in (run1 / "checkpoints").glob("*.pt"))
+        layout = {name: (run1 / name).exists() for name in (
+            "curriculum.json", "train_spec.txt", "logs", "evaluation",
+            "samples/trainview", "samples/valview", "samples/testview")}
+        grids = sorted(p.name for p in (run1 / "samples" / "valview").glob("*.png"))
+        val = first.histories["photometry_losses_val"]
+        print(f"phase 10: output dir {layout}; checkpoints {saves}; valview grids {grids}; "
+              f"val losses {val}; histories: {len(first.histories['photometry_losses'])} "
+              "photo, "
+              f"{len(first.histories['generator_losses'])} G, "
+              f"{len(first.histories['discriminator_losses'])} D")
+        if not all(layout.values()) or len(saves) < 2 or not grids or not val:
+            failures.append("phase 10: the thesis run's output dir lacks a part")
+        losses = [v for k in ("photometry_losses", "generator_losses", "discriminator_losses")
+                  for v in first.histories[k]]
+        if len(losses) != 3 * (THESIS_STOP + 1) or not np.all(np.isfinite(losses)):
+            failures.append("phase 10: the thesis run's losses are missing or not finite")
+        ref = {s["step"]: s for s in probe.steps}
+        ref_hist = {k: list(first.histories[k]) for k in (
+            "photometry_losses", "generator_losses", "discriminator_losses")}
+        del first, probe
+        torch.cuda.empty_cache()
+
+        # a resume from the step-5 checkpoint to step 8
+        run2 = tmp / "resumed"
+        take_counts()
+        with TrainerProbe(counters) as probe:
+            rc = train.main(["-o", str(run2), "-l", str(run1 / "checkpoints" / "5.pt"),
+                             "--stop_step", "8", *flags])
+        resume_counts = take_counts()
+        resumed = probe.trainers[0]
+        worst = 0.0
+        for s in probe.steps:
+            r = ref[s["step"]]
+            same = (s["position"], s["img"]) == (r["position"], r["img"])
+            print(f"phase 10 resume step {s['step']}: loader {s['position']} (uninterrupted "
+                  f"{r['position']}), image size {s['img']} ({r['img']})")
+            if not same:
+                failures.append(f"phase 10: the resumed run's step {s['step']} is not the "
+                                "uninterrupted run's")
+        for k, values in ref_hist.items():
+            got = resumed.histories[k]
+            for step in range(6, 9):
+                rel = abs(got[step] - values[step]) / max(abs(values[step]), 1e-30)
+                worst = max(worst, rel)
+                print(f"phase 10 resume {k}[{step}]: {got[step]:.7f} uninterrupted "
+                      f"{values[step]:.7f} (rel {rel:.3e})")
+        print(f"phase 10: resumed run rc {rc}, steps {[s['step'] for s in probe.steps]}; "
+              f"largest relative loss difference {worst:.3e} (bound {RESUME_LOSS_TOL})")
+        if (rc != 0 or [s["step"] for s in probe.steps] != [6, 7, 8]
+                or not worst <= RESUME_LOSS_TOL):
+            failures.append(f"phase 10: the resumed run does not replay the uninterrupted "
+                            f"one (rc {rc}, largest loss difference {worst:.3e})")
+        del resumed, probe
+        torch.cuda.empty_cache()
+
+        # the dg preset across its first milestone
+        run3 = tmp / "dg"
+        run3.mkdir()
+        cur = compressed_curriculum("dg", DG_STAGE_STEPS, ds_root)
+        curriculum_to_json(cur, run3 / "curriculum.json")
+        dg_milestones = sorted(k for k in cur if isinstance(k, int))
+        take_counts()
+        t0 = time.perf_counter()
+        with TrainerProbe(counters) as probe:
+            rc = train.main(["-o", str(run3), "--stop_step", str(2 * DG_STAGE_STEPS - 1),
+                             "-p", str(DG_STAGE_STEPS), "-s", "1000", "-e", "1000",
+                             "--device", str(device)])
+        dg_counts = take_counts()
+        print(f"phase 10: dg run, milestones {dg_milestones[:2]}, rc {rc} in "
+              f"{time.perf_counter() - t0:.2f} s; launches over the run K1 {dg_counts[0]}, "
+              f"K2 {dg_counts[1]}, trilinear {dg_counts[2]}, trilinear backward "
+              f"{dg_counts[3]}")
+        dg_stages = print_stages("phase 10 dg", probe.steps, dg_milestones, failures,
+                                 names=("K1", "K2", "trilinear", "trilinear backward"))
+        if rc != 0 or [s["img"] for s in dg_stages] != [32, 64]:
+            failures.append(f"phase 10: the dg run (rc {rc}) ran stages "
+                            f"{[s['img'] for s in dg_stages]}, not 32 and 64")
+        del probe
+        torch.cuda.empty_cache()
+
+        # one image grid from a trainer checkpoint, through the infer CLI
+        take_counts()
+        rc = infer_main([str(run1 / "checkpoints" / f"{THESIS_STOP}.pt"), "--images",
+                         "--num_imgs", "4", "--device", str(device)])
+        infer_counts = take_counts()
+        out = sorted((run1 / "inference").glob("*.png"))
+        shape = read_png(out[0]).shape if out else None
+        print(f"phase 10: infer CLI on checkpoint {THESIS_STOP}: rc {rc}, wrote "
+              f"{[p.name for p in out]} of {shape}; K1 launches {infer_counts[0]}")
+        if rc != 0 or shape != (4 * 128, 4 * 128, 3) or not infer_counts[0]:
+            failures.append("phase 10: the infer CLI did not render the trainer checkpoint")
+    torch.cuda.empty_cache()
+    return dict(trainer=thesis_counts, resumed=resume_counts, dg_trainer=dg_counts,
+                trainer_infer=infer_counts, stages=stages, dg_stages=dg_stages)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
               "needs one CUDA GPU", file=sys.stderr)
         return 1
-    from pathlib import Path
-
     from conditioned_nerf_gan_torch.ops.kernels import build
 
     # the plain versions are the comparators: full fp32 products, no TF32
@@ -1854,22 +2153,30 @@ def main() -> int:
     study_rows, study = phase8_study(device, failures,
                                      fwd["ms_by_shape"]["thesis render"]["ms"])
     dg = phase9_dg_train(device, failures)
+    trainer = phase10_trainer(device, Path(build.BUILD_DIR), failures)
     if failures:
         raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
-    fwd["launches"] = serve_launches + train_fwd + study["k1"]
+    thesis, dg_run = trainer["trainer"], trainer["dg_trainer"]
     fwd["launches_by_path"] = {"serve": serve_launches, "train": train_fwd,
-                               "film_study": study["k1"]}
-    fwd32["launches"] = dg_k1 + dg["k1"]
-    fwd32["launches_by_path"] = {"dg_serve": dg_k1, "dg_train": dg["k1"]}
-    bwd["launches"] = train_bwd + study["k2"] + dg["k2"]
+                               "film_study": study["k1"], "trainer": thesis[0],
+                               "trainer_resumed": trainer["resumed"][0],
+                               "trainer_infer": trainer["trainer_infer"][0]}
+    fwd["launches"] = sum(fwd["launches_by_path"].values())
+    fwd32["launches_by_path"] = {"dg_serve": dg_k1, "dg_train": dg["k1"],
+                                 "dg_trainer": dg_run[0]}
+    fwd32["launches"] = sum(fwd32["launches_by_path"].values())
     bwd["launches_by_path"] = {"train": train_bwd, "film_study": study["k2"],
-                               "dg_train": dg["k2"]}
+                               "dg_train": dg["k2"], "trainer": thesis[1],
+                               "trainer_resumed": trainer["resumed"][1],
+                               "dg_trainer": dg_run[1]}
+    bwd["launches"] = sum(bwd["launches_by_path"].values())
     bwd["ms_by_shape"].update(bwd32["timed"])
     bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd32["worst"])
-    tri["launches"] = dg_tri + dg["trilinear"]
-    tri["launches_by_path"] = {"dg_serve": dg_tri, "dg_train": dg["trilinear"]}
-    tri_bwd["launches"] = dg["trilinear_bwd"]
-    tri_bwd["launches_by_path"] = {"dg_train": dg["trilinear_bwd"]}
+    tri["launches_by_path"] = {"dg_serve": dg_tri, "dg_train": dg["trilinear"],
+                               "dg_trainer": dg_run[2]}
+    tri["launches"] = sum(tri["launches_by_path"].values())
+    tri_bwd["launches_by_path"] = {"dg_train": dg["trilinear_bwd"], "dg_trainer": dg_run[3]}
+    tri_bwd["launches"] = sum(tri_bwd["launches_by_path"].values())
     for row, kernel in zip(study_rows, ("v3", "v4", "v5")):
         row["launches"] = study[kernel]
         row["launches_by_path"] = {"film_study": study[kernel]}

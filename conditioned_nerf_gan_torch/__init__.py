@@ -3,8 +3,9 @@
 The JAX package beside it is the reference: every module here has a
 counterpart at the same path there, and tests/test_torch_*.py hold each one
 against it on the CPU. This package imports `torch`, never `jax` or `flax`
-(the one exception is `bridge.convert_checkpoint`, which reads a JAX
-checkpoint where flax is installed).
+(the exceptions are `bridge.convert_checkpoint` and
+`bridge.convert_train_checkpoint`, which read a JAX checkpoint where flax
+is installed).
 
 Layout (bottom-up, mirroring the JAX package):
     ops/          rays, volume integration, importance sampling,
@@ -13,12 +14,15 @@ Layout (bottom-up, mirroring the JAX package):
                   `csrc/`, built at first use).
     models/       SIREN layers, SHORTSIREN and the FG SIRENs, ResNet-PointNet,
                   the 3-D U-Net, the generator, the progressive discriminator.
-    training/     losses, schedules, the GAN train step, the stage workload.
+    training/     losses, schedules, the GAN train step, the stage workload,
+                  checkpoints and the Trainer.
+    train.py      the train CLI (`python -m conditioned_nerf_gan_torch.train`).
     infer/        the Inferencer and its CLI (`python -m
                   conditioned_nerf_gan_torch.infer`).
     config/       the curriculum system and every preset.
-    data/         the ShapeNet reader, the EXR decoder, the native loader.
-    utils/        image grids.
+    data/         the ShapeNet reader, the EXR decoder, the native loader,
+                  the synthetic fixture writer.
+    utils/        image grids, PNG decode/encode, cv2's resize rules.
     tools/        the FiLM-SIREN kernel study (`python -m
                   conditioned_nerf_gan_torch.tools.bench_film_kernel`).
     bridge.py     flax param tree / JAX checkpoint -> torch state_dict.

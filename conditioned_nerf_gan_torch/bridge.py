@@ -13,6 +13,12 @@ and OIDHW. Module names map onto the port's attribute names:
 and `kernel` -> `weight`, `bias` -> `bias`, a GroupNorm's `scale` ->
 `weight` (`final_layer` and `final_conv` keep their names). This is the
 inverse of the `t2j_*` helpers of tests/test_models_golden.py.
+
+Optimizer state crosses with the same names: an optax chain's
+`ScaleByAdamState` gives each torch parameter's Adam state, `mu` ->
+`exp_avg`, `nu` -> `exp_avg_sq` and `count` -> `step`
+(`load_optax_state`); `convert_train_checkpoint` turns a JAX trainer's
+`{step}.ckpt` into the port's trainer checkpoint.
 """
 
 from __future__ import annotations
@@ -91,3 +97,91 @@ def convert_checkpoint(path: str | Path) -> Path:
         "params_E": params_to_state_dict(raw["params_E"]),
     }, out)
     return out
+
+
+def _adam_state(tree):
+    """The (count, mu, nu) of the first ScaleByAdamState in an optax chain
+    state: a live pytree (namedtuples) or its msgpack restore (dicts)."""
+    if isinstance(tree, dict):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree["count"], tree["mu"], tree["nu"]
+        children = tree.values()
+    elif all(hasattr(tree, name) for name in ("count", "mu", "nu")):
+        return tree.count, tree.mu, tree.nu
+    elif isinstance(tree, (tuple, list)):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def load_optax_state(opt_state, module: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer) -> None:
+    """Carry a JAX optax chain's Adam moments into `optimizer`, whose
+    parameters are `module`'s (with the params already bridged): each
+    parameter's exp_avg, exp_avg_sq and step."""
+    found = _adam_state(opt_state)
+    if found is None:
+        raise ValueError("the optax state holds no ScaleByAdamState")
+    count, mu, nu = found
+    mu = params_to_state_dict(_numpy_tree(mu))
+    nu = params_to_state_dict(_numpy_tree(nu))
+    params = dict(module.named_parameters())
+    if set(mu) != set(params):
+        raise ValueError(f"the optax moments name {sorted(set(mu) ^ set(params))} "
+                         "that the module lacks, or the other way round")
+    owned = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    step = float(np.asarray(count))
+    for name, p in params.items():
+        if id(p) not in owned:
+            raise ValueError(f"{name} is not one of the optimizer's parameters")
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype).clone(),
+        }
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def convert_train_checkpoint(path: str | Path) -> Path:
+    """Convert a JAX trainer's `{step}.ckpt` (its whole TrainState) into the
+    port's trainer checkpoint `{step}.pt` beside it, which shares the JAX
+    sidecar `{step}.json` (histories and loader position, one format in
+    both packages): the three nets' params and the three
+    optimizers' Adam state, for the models and learning rates of the run's
+    curriculum (`{run}/curriculum.json`, else the thousand preset) at that
+    step. Needs flax installed; runs on the CPU."""
+    from flax import serialization
+
+    from .infer.inference import build_models, load_metadata
+    from .models.discriminators import make_discriminator
+    from .training.checkpoints import save_checkpoint
+    from .training.train_step import TrainStepConfig, create_train_state
+
+    path = Path(path)
+    raw = serialization.msgpack_restore(path.read_bytes())
+    step = int(np.asarray(raw["step"])) if "step" in raw else int(path.stem) + 1
+    meta = load_metadata(int(path.stem), path.parent.parent)
+    G, E = build_models(meta)
+    D = (make_discriminator(meta["discriminator"]) if raw.get("params_D") is not None
+         else None)
+    if D is None:
+        meta = dict(meta, enable_discriminator=False)
+    state = create_train_state(G, E, D, TrainStepConfig.from_metadata(meta))
+    state.step = step
+    for net, module, opt in (("G", G, state.opt_G), ("E", E, state.opt_E),
+                             ("D", D, state.opt_D)):
+        if module is None:
+            continue
+        module.load_state_dict(params_to_state_dict(_numpy_tree(raw[f"params_{net}"])))
+        load_optax_state(raw[f"opt_{net}"], module, opt)
+    return save_checkpoint(path.parent, int(path.stem), state)

@@ -1,9 +1,11 @@
 """Host-side data pipeline (port copy of conditioned_nerf_gan_tpu/data): the
-ShapeNet reader and loaders, the EXR depth decoder and the native fastload
-bindings. The synthetic fixtures stay in the JAX package (they use jax)."""
+ShapeNet reader and loaders, the EXR depth decoder, the native fastload
+bindings and the synthetic fixture writer (its views rendered with the
+port's own ops)."""
 
 from .exr import read_exr_depth
 from .shapenet import DataLoader, ShapeNetDataset, get_dataloader, sample_cond
+from .synthetic import make_synthetic_shapenet
 
 __all__ = [
     "ShapeNetDataset",
@@ -11,4 +13,5 @@ __all__ = [
     "get_dataloader",
     "sample_cond",
     "read_exr_depth",
+    "make_synthetic_shapenet",
 ]

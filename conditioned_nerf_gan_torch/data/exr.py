@@ -15,6 +15,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils.resize import resize
+
 _MAGIC = 20000630
 _PIXEL_DTYPES = {0: np.uint32, 1: np.float16, 2: np.float32}
 _COMPRESSION_SCANLINES = {0: 1, 1: 1, 2: 1, 3: 16}  # NONE, RLE, ZIPS, ZIP
@@ -158,15 +160,13 @@ def read_exr(path: str | Path) -> dict[str, np.ndarray]:
 
 def read_exr_depth(path: str | Path, img_size: int | None = None) -> np.ndarray:
     """Depth map with the reference's background convention (datasets.py:183-216)."""
-    import cv2
-
     chans = read_exr(path)
     key = "R" if "R" in chans else next(iter(chans))
     depth = chans[key].astype(np.float64)
     depth[depth == 65504] = np.inf
     if img_size is not None and img_size != depth.shape[0]:
-        mode = cv2.INTER_LINEAR if img_size > depth.shape[0] else cv2.INTER_AREA
-        depth = cv2.resize(depth, dsize=(img_size, img_size), interpolation=mode)
+        mode = "linear" if img_size > depth.shape[0] else "area"
+        depth = resize(depth, img_size, mode)
     # zero ALL non-finite values, not just +inf: bilinear UPSCALE across the
     # inf background produces NaN (inf - inf inside cv2's lerp), which the
     # reference's `depth[depth == np.inf] = 0` (datasets.py:215) would leak

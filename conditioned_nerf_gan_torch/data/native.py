@@ -2,16 +2,14 @@
 
 Port copy of conditioned_nerf_gan_tpu/data/native.py. Compiles the shared
 library on first use (g++ -O3) into the port's `_build/` (a directory that
-.gitignore lists, beside the kernels' libraries); falls back silently to the
-cv2 path when a toolchain isn't available. Enable in the reader with
-CNG_NATIVE_LOADER=1.
+.gitignore lists, beside the kernels' libraries), through a temporary name
+that is moved into place whole, so a process that builds it at the same time
+as another never loads a half-written file. `available()` says whether it
+built; `build_error()` says why not. Enable in the reader with
+CNG_NATIVE_LOADER=1, which then raises when the library is unavailable.
 
-Honest measurement note: on this repo's 1-vCPU build host the cv2 path wins
-(27 ms vs 40 ms per 48×128² batch) because OpenCV's SIMD PNG inflate beats
-the scalar decoder and a thread pool has no cores to use; on multi-core
-training hosts the batch call scales near-linearly with threads and removes
-Python from the per-image path entirely (the reference needed 8 DataLoader
-worker processes for the same job).
+The reader's default path decodes PNGs in numpy (`utils/png.py`); the
+JAX package's copy of this module records how the two compared on its hosts.
 """
 
 from __future__ import annotations
@@ -29,33 +27,49 @@ _LIB = _PKG / "_build" / "libfastload.so"
 
 _lib = None
 _load_failed = False
+_error = ""
 
 
 def _build() -> bool:
+    """Compile to a name of this process's own, then rename it onto _LIB
+    (atomic on one file system)."""
+    global _error
+    tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
     try:
         _LIB.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", str(_LIB), str(_SRC),
+            ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(_SRC),
              "-lz", "-lpthread"],
-            check=True, capture_output=True,
+            check=True, capture_output=True, text=True,
         )
+        os.replace(tmp, _LIB)
         return True
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return False
+    except FileNotFoundError as exc:
+        _error = f"no C++ compiler ({exc})"
+    except subprocess.CalledProcessError as exc:
+        _error = f"g++ failed: {exc.stderr.strip()[-500:]}"
+    finally:
+        tmp.unlink(missing_ok=True)
+    return False
 
 
 def get_lib():
     """The loaded shared library, or None if unavailable."""
-    global _lib, _load_failed
+    global _lib, _load_failed, _error
     if _lib is not None or _load_failed:
         return _lib
+    if not _SRC.exists():
+        _error = f"{_SRC} is missing"
+        _load_failed = True
+        return None
     if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-        if not _SRC.exists() or not _build():
+        if not _build():
             _load_failed = True
             return None
     try:
         lib = ctypes.CDLL(str(_LIB))
-    except OSError:
+    except OSError as exc:
+        _error = f"could not load {_LIB}: {exc}"
         _load_failed = True
         return None
     lib.fastload_png16.argtypes = [
@@ -75,6 +89,11 @@ def get_lib():
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def build_error() -> str:
+    """Why the library is unavailable ("" when it loaded or was not tried)."""
+    return _error
 
 
 def read_png16(path: str | Path, img_size: int, scale: float = 2.0,

@@ -28,18 +28,22 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils.png import read_png
+from ..utils.resize import resize
 from .exr import read_exr_depth
 
 
-def _read_resize_png16(path: str | Path, img_size: int) -> np.ndarray:
-    """16-bit RGBA png → (H, W, 3) float in [0, 1] (datasets.py:172-180)."""
-    import cv2
+def _resize_mode(img_size: int, src_size: int) -> str:
+    """INTER_LINEAR to enlarge, INTER_AREA to shrink (datasets.py:176-179)."""
+    return "linear" if img_size > src_size else "area"
 
-    x = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
-    x = cv2.cvtColor(x, cv2.COLOR_BGRA2RGB)
+
+def _read_resize_png16(path: str | Path, img_size: int) -> np.ndarray:
+    """16-bit RGBA png → (H, W, 3) float in [0, 1] (datasets.py:172-180),
+    decoded and resized with cv2's rules by the port's own code."""
+    x = read_png(path)[..., :3]
     if img_size != x.shape[0]:
-        mode = cv2.INTER_LINEAR if img_size > x.shape[0] else cv2.INTER_AREA
-        x = cv2.resize(x, dsize=(img_size, img_size), interpolation=mode)
+        x = resize(x, img_size, _resize_mode(img_size, x.shape[0]))
     return x / (2 ** 16 - 1)
 
 
@@ -115,15 +119,13 @@ class ShapeNetDataset:
         if os.environ.get("CNG_NATIVE_LOADER") == "1":
             from . import native
 
-            self._use_native = native.available()
-            if not self._use_native:
-                import warnings
-
-                warnings.warn(
-                    "CNG_NATIVE_LOADER=1 but the fastload library is "
-                    "unavailable (no toolchain?) — falling back to the "
-                    "cv2 per-sample decode path"
-                )
+            if not native.available():
+                raise RuntimeError(
+                    "CNG_NATIVE_LOADER=1 (--native_loader) but the fastload library "
+                    f"could not be built or loaded: {native.build_error()}. Install g++ "
+                    "and zlib's headers (the build runs `g++ -O3 -shared ... -lz "
+                    "-lpthread` on native/fastload.cc), or unset CNG_NATIVE_LOADER")
+            self._use_native = True
         self.load_img = load_img
         self.load_depth = load_depth
         self.load_voxel = load_voxel
@@ -221,16 +223,8 @@ class ShapeNetDataset:
             else:  # synthetic fixtures store depth as .npy
                 depth = np.load(car_dir / "depth" / (img_path.stem + ".npy"))
                 if depth.shape[0] != self.img_size:
-                    import cv2
-
-                    mode = (
-                        cv2.INTER_LINEAR
-                        if self.img_size > depth.shape[0]
-                        else cv2.INTER_AREA
-                    )
-                    depth = cv2.resize(
-                        depth, (self.img_size, self.img_size), interpolation=mode
-                    )
+                    depth = resize(depth, self.img_size,
+                                   _resize_mode(self.img_size, depth.shape[0]))
             if depth is not None:
                 sample["depth"] = depth.astype(np.float32)
 

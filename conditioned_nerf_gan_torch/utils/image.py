@@ -1,7 +1,8 @@
 """Image grid writing (torchvision.utils.save_image equivalent).
 
 The reference dumps sample grids with torchvision (reference utils.py:910-915);
-here grids are assembled in numpy and written with cv2.
+here grids are assembled in numpy and written as 8-bit RGB PNGs by the
+port's own encoder (`utils/png.py`).
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+from .png import write_png
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -23,8 +26,6 @@ def save_image_grid(
     padding: int = 2,
 ) -> None:
     """Tile (N, H, W, 3) float[0,1] images into a grid png, nrow per row."""
-    import cv2
-
     images = np.asarray(images)
     n, h, w, c = images.shape
     ncol = nrow
@@ -38,5 +39,4 @@ def save_image_grid(
         y = padding + r * (h + padding)
         x = padding + col * (w + padding)
         grid[y : y + h, x : x + w] = images[idx]
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    cv2.imwrite(str(path), to_uint8(grid)[..., ::-1])  # RGB→BGR
+    write_png(path, to_uint8(grid))

@@ -1,7 +1,7 @@
 """Card-only tests of the hand-written CUDA kernels (marker `cuda`): the
 FiLM-SIREN forward (K1) and backward (K2), each at Din 3 and 32, the
 trilinear sampler and its backward, and the study kernels (K3, K4 v4 and
-v5), against their plain versions.
+v5), against their plain versions; and one Trainer step on the card.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where only the port is installed:
@@ -580,3 +580,86 @@ def test_study_kernel_refuses_an_uncompiled_instance():
     # point-major tiles are wgmma's M, 64 points a warpgroup: no 32
     with pytest.raises(ValueError, match="no instance of v3 single at 32 points"):
         tstudy.film_siren_study(*args, kernel="v3", mode="single", tile=32)
+
+
+def _stage0_inputs(freq_scale):
+    """Seeded Din 3 inputs at the thesis stage 0's shape: batch 24, 32^2
+    rays of 48 samples, unchunked."""
+    rng = np.random.default_rng(24)
+    B, N, H, L = 24, 32 * 32 * 48, tfs.KERNEL_HIDDEN, 4
+    arrays = (
+        rng.uniform(-0.3, 0.3, (B, N, 3)),
+        rng.uniform(25, 45, (B, L * H)) * freq_scale,
+        rng.uniform(-1, 1, (B, L * H)),
+        rng.normal(0, 0.5, (3, H)),
+        rng.normal(0, 0.1, (H,)),
+        rng.normal(0, 1.0, (L - 1, H, H)) * np.sqrt(6 / H) / 30,
+        rng.normal(0, 0.1, (L - 1, H)),
+        rng.normal(0, 0.1, (H, 4)),
+        rng.normal(0, 0.1, (4,)),
+    )
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays]
+
+
+@pytest.mark.parametrize("freq_scale", [1.0 / 30.0, 1.0])
+def test_kernels_at_the_stage0_shape(freq_scale):
+    """K1 and K2 at 24 x 49,152 points against their plain versions, with
+    chip_smoke's phase 1 and 4 bounds: at freq/30 K1's max within 3e-3 and
+    K2's norm-relative error within 2e-3; at freq 25-45 (where a flipped
+    bf16 rounding grows ~2x a layer) K1's mean within 3e-4 and K2's norm
+    within 3e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = _stage0_inputs(freq_scale)
+    g = torch.from_numpy(np.random.default_rng(25).normal(
+        0, 1, (*inputs[0].shape[:2], 4)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        err = (tfs.film_siren_mlp(*inputs) - tfs.film_siren_mlp_folded(*inputs)).abs()
+    if freq_scale < 1:
+        assert err.max().item() < 3e-3
+    else:
+        assert torch.isfinite(err).all() and err.mean().item() < 3e-4
+    out = tfs.film_siren_mlp_bwd(*inputs, g)
+    plain = tfs.film_siren_mlp_folded_vjp(*inputs, g)
+    torch.cuda.synchronize()
+    for k, p in zip(out, plain):
+        assert k.shape == p.shape and torch.isfinite(k).all()
+        assert ((k - p).norm() / p.norm()).item() < (2e-3 if freq_scale < 1 else 3e-3)
+
+
+def test_one_trainer_step_on_the_card(tmp_path):
+    """The Trainer on the card: the thesis model (full width, the kernels'
+    policy) at a small stage 0 (batch 2 at 16^2, unchunked) on the port's
+    fixture written on the card. One step launches K1 for the D step's
+    render and the G step's (coarse and fine: 4) and K2 for the G step's
+    backward (2), and leaves a checkpoint."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import types
+
+    from conditioned_nerf_gan_torch.config import curriculum_to_json, load_curriculum
+    from conditioned_nerf_gan_torch.data.synthetic import make_synthetic_shapenet
+    from conditioned_nerf_gan_torch.training.trainer import Trainer
+
+    ds = make_synthetic_shapenet(tmp_path / "data", n_cars=2, n_views=3, img_size=32,
+                                 n_points=512, voxel_resolutions=(32,), device="cuda")
+    cur = load_curriculum(config_base="thousand")
+    cur[0].update(batch_size=2, img_size=16, num_steps=12)
+    cur["dataset"]["path"] = str(ds)
+    out = tmp_path / "run"
+    out.mkdir()
+    curriculum_to_json(cur, out / "curriculum.json")
+    args = types.SimpleNamespace(output_dir=str(out), load_dir="", load_curriculum="",
+                                 sampling_interval=100, print_freq=100, eval_freq=100,
+                                 n_epochs=1, stop_step=0, config=None, config_base="thousand",
+                                 seed=0, profile_dir=None, device="cuda")
+    trainer = Trainer(args)
+    trainer.load_models()
+    before = (tfs.film_siren_mlp.launches, tfs.film_siren_mlp_bwd.launches)
+    trainer.train()
+    torch.cuda.synchronize()
+    assert (tfs.film_siren_mlp.launches - before[0],
+            tfs.film_siren_mlp_bwd.launches - before[1]) == (4, 2)
+    assert (out / "checkpoints" / "0.pt").exists()
+    assert np.isfinite(trainer.histories["photometry_losses"]).all()
