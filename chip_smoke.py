@@ -18,8 +18,9 @@ Refuses to run without CUDA (exit 1). Otherwise:
      at the `dg` training chunk (12 x 49,152), at its serving ray chunk
      (2 x 49,152) and a ragged 2 x 1,000;
   2. drives the port's serving path: the thesis model (`thousand` preset +
-     special.py: PointNet 512/512, SHORTSIREN z 512, 4 x 256) with seeded
-     random weights is saved as a port checkpoint, loaded by `Inferencer`,
+     special.py: PointNet 512/512 under the presets' bf16 policy, SHORTSIREN
+     z 512, 4 x 256) with seeded random weights is saved as a port
+     checkpoint, loaded by `Inferencer`,
      and answers 4 requests (2 colored point clouds each) through
      `encode` -> `render_batched` at 128^2 with 48 + 48 samples. It checks
      finite output in range, that every render went through the kernel,
@@ -38,12 +39,19 @@ Refuses to run without CUDA (exit 1). Otherwise:
      and a ragged 2 x 1,000, with dpoints (the sampled features' cotangent)
      held like every other grad;
   5. drives the port's training path: the thesis model at stage 2 (step
-     16000, fade-in alpha 0.5) at full width, the discriminator with R1,
-     batch 12 at 128^2, 48 + 48 samples, ray_chunks 16, through
-     `make_train_step`: one warm-up and three timed steps (s/step, peak
-     memory, kernel launches per step against the design's count), finite
-     losses, all three nets moved, one step against the same step with the
-     plain versions in both kernels' places, and one profiled step;
+     16000, fade-in alpha 0.5) at full width, PointNet and the
+     discriminator (with R1) under the presets' bf16 policy, batch 12 at
+     128^2, 48 + 48 samples, ray_chunks 16, through `make_train_step`: one
+     warm-up step (whose layers' output dtypes are recorded by forward
+     hooks: PointNet's blocks bf16, its latent fp32) and three timed steps
+     (s/step, peak memory, kernel launches per step against the design's
+     count), finite losses, all three nets moved, one step against the
+     same step with the plain versions in both kernels' places (what is
+     read through the bf16 D printed, the rest held), one profiled step;
+     then, on a bench of its own with PointNet and D at compute_dtype None
+     (the fp32 path), one step timed after a warm-up beside the policy's
+     and the kernel step against the plain step, every loss and net's
+     grads held at the same bounds;
   6. holds the trilinear-sampling kernel against its plain torch version
      (`border_trilerp_reference`, the same fp32 lerps) on a 2 x 64^3 x 32
      feature volume at 2 x 786,432 points, at a ragged 2 x 1,000, on points
@@ -61,7 +69,7 @@ Refuses to run without CUDA (exit 1). Otherwise:
      and the first design's (counted in plain torch by
      `presummed_contributions`, a replica of its grouping);
   7. drives the voxel-conditioned serving path: the `dg` preset (UNet3D
-     4 -> 32, f_maps 32, 4 levels; TALLSIREN_FG, 8 x 256 on 32 sampled
+     4 -> 32, f_maps 32, 4 levels, bf16 policy; TALLSIREN_FG, 8 x 256 on 32 sampled
      features) at step 30000 with seeded random weights, saved as a port
      run, loaded by `Inferencer`, answers 4 requests (2 voxelised point
      clouds at 64^3 each) through `encode` -> `render_batched` at 128^2 with
@@ -82,16 +90,19 @@ Refuses to run without CUDA (exit 1). Otherwise:
      K2's VJP) through `run_study`, counting launches;
   9. drives the voxel family's training path: the `dg` preset at stage 2
      (step 16000) at full width (UNet3D 4 -> 32, f_maps 32, 4 levels on 12
-     voxel grids of 64^3; TALLSIREN_FG 8 x 256 on 32 sampled features; no
-     discriminator), batch 12 at 128^2, 48 + 48 samples, ray_chunks 16,
-     through `make_train_step`: one warm-up and three timed steps (s/step,
+     voxel grids of 64^3 under the bf16 policy; TALLSIREN_FG 8 x 256 on 32
+     sampled features; no discriminator), batch 12 at 128^2, 48 + 48
+     samples, ray_chunks 16, through `make_train_step`: one warm-up step
+     (hooks: the U-Net's block convs bf16, GroupNorm and its result fp32)
+     and three timed steps (s/step,
      peak memory, launches of K1, K2 and both trilinear kernels per step
      against the design's count), finite losses, G and E moved (the U-Net's
      grads come back through the trilinear backward), one step against the
      same step with the plain versions in every kernel's place, one
      profiled step (the dV scatters' device time), one step whose ops on a
      tensor of dV's shape are counted (one zeroing a render with grad, no
-     sum), and the step's dV path (that zeroing and the scatters);
+     sum), the step's dV path (that zeroing and the scatters), and one
+     step on a bench with the U-Net at compute_dtype None (fp32), timed;
  10. drives the train CLI (`conditioned_nerf_gan_torch.train.main`, the
      Trainer) on the card: writes the port's synthetic fixture on the card
      (6 cars x 8 views at 128^2, clouds of 65,536 points, 64^3 voxel
@@ -106,14 +117,27 @@ Refuses to run without CUDA (exit 1). Otherwise:
      dg preset across its first milestone (2 steps at stages 0 and 1,
      launches of all four kernels per step against the design); and
      renders one image grid from the thesis run's checkpoint through the
-     infer CLI.
+     infer CLI; the thesis run's eval_freq steps also run Trainer.evaluate;
+ 11. the eval on the card: a thesis run at full width on a fixture of 6
+     cars x 12 views (oFID's 10-view minimum) written on the card, one step
+     a stage to step 3, where Trainer.evaluate renders the `fid` subset (72
+     views at 128^2, 96 + 96 samples, K1 launches against the count from
+     the views, the render batch and the ray chunks) and writes FID, oFID,
+     LPIPS and PSNR to fid.txt under its random-weights stamp; the eval's
+     seconds split into real-image setup, render and metrics; the card's
+     Inception 768 and 2048 features and LPIPS held against the same nets
+     on the CPU for the same PNGs, and Newton-Schulz in fp32 on the card
+     against scipy's sqrtm on a seeded well-conditioned covariance pair
+     (on one car's singular oFID pair it is printed, not held).
+Phases 2, 5, 7, 9, 10 and 11 each print a precision line: which nets run
+the bf16 policy and the process's TF32 and bf16-reduction flags.
 Prints one JSON line of kernel results (each kernel's time beside its plain
 version's, the least time the card could take for the same work, and the
 one PyTorch call that computes the same function where there is one; K1 and
 K2 and the trilinear kernels at the training chunk, the other shapes under
 `ms_by_shape`), then
 the last line {"ok": true, "device": {...}}. Any failed check raises
-(non-zero exit); checks of phases 1b and 4-10 raise after phase 10, so one
+(non-zero exit); checks of phases 1b and 4-11 raise after phase 11, so one
 run reports them all.
 """
 
@@ -217,6 +241,12 @@ FIRST_SCATTER_MS = 0.1941
 # ~2e-5 and the grads by ~1e-3.
 STEP_LOSS_TOL = 1e-4  # |kernel - plain| / |plain| for each loss [1.06e-6]
 STEP_GRAD_TOL = 5e-3  # |kernel - plain|_2 / |plain|_2 over a net's grads [8.75e-5]
+# Under the presets' bf16 policy D's activations and logits are bf16
+# roundings: the fake images' kernel-vs-plain differences flip some of them,
+# so what is read through D (d_loss, g_loss, D's grads) is printed for the
+# policy step, and held at the bounds above on the same comparison with the
+# encoder and D at compute_dtype None (the fp32 path the bounds were set on)
+THROUGH_D = ("d_loss", "g_loss", "D")
 TRAIN_STEP = 16000  # stage 2 of the thesis curriculum, fade-in alpha 0.5
 TRAIN_TIMED_STEPS = 3
 # Phase 9: the dg step with the kernels against the same step with the
@@ -636,6 +666,7 @@ def phase2_serve(device, build_dir):
           f"{inf.curriculum['num_steps']}+{inf.curriculum['num_steps']} samples, "
           f"ray_chunks {chunks}, white_back {inf.curriculum['white_back']}, "
           f"fov {inf.curriculum['fov']}")
+    precision_line("phase 2", dict(PointNet=inf.encoder))
     requests = make_requests(inf.curriculum, REQUESTS, seed=0)
 
     torch.cuda.reset_peak_memory_stats()
@@ -954,11 +985,161 @@ def record_grads(state) -> dict:
     return grads
 
 
+def precision_line(phase: str, nets: dict) -> None:
+    """Print which of `nets` ({label: module or None}) run a bf16 policy
+    (their layers' `compute_dtype`), beside the process's TF32 and
+    bf16-reduction flags."""
+    def policy(module):
+        dtypes = {str(m.compute_dtype).replace("torch.", "") for m in module.modules()
+                  if getattr(m, "compute_dtype", None) is not None}
+        return "/".join(sorted(dtypes)) or "fp32"
+
+    b = torch.backends
+    print(f"{phase}: precision: " + ", ".join(
+        f"{label} {policy(net)}" for label, net in nets.items() if net is not None)
+        + " (params fp32); the SIRENs through K1 and K2 (bf16 products, fp32 sums); "
+        f"process flags: matmul.allow_tf32 {b.cuda.matmul.allow_tf32}, cudnn.allow_tf32 "
+        f"{b.cudnn.allow_tf32}, matmul.allow_bf16_reduced_precision_reduction "
+        f"{b.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+
+
+class PolicyProbe:
+    """Forward hooks on an encoder that record the dtypes its layers put
+    out: PointNet's blocks and the U-Net's block convs must be bf16 under
+    the policy, GroupNorm and the encoder's result fp32."""
+
+    def __init__(self, encoder):
+        from conditioned_nerf_gan_torch.models.pointnet import ResnetBlockFC
+        from conditioned_nerf_gan_torch.models.unet3d import Conv3d, GroupNorm
+
+        self.seen: dict[str, set] = {}
+        self.expect: dict[str, torch.dtype] = {}
+        self.handles = []
+        for name, module in encoder.named_modules():
+            if isinstance(module, ResnetBlockFC):
+                self._watch(module, "PointNet block", torch.bfloat16)
+            elif isinstance(module, Conv3d) and name != "final_conv":
+                self._watch(module, "U-Net conv", torch.bfloat16)
+            elif isinstance(module, GroupNorm):
+                self._watch(module, "GroupNorm", torch.float32)
+        self._watch(encoder, "encoder result", torch.float32)
+
+    def _watch(self, module, kind, dtype):
+        self.expect[kind] = dtype
+
+        def record(_module, _args, out):
+            for t in (out if isinstance(out, tuple) else (out,)):
+                self.seen.setdefault(kind, set()).add(t.dtype)
+
+        self.handles.append(module.register_forward_hook(record))
+
+    def check(self, phase: str, failures: list) -> None:
+        for handle in self.handles:
+            handle.remove()
+        seen = {k: sorted(str(d).replace("torch.", "") for d in v) for k, v in self.seen.items()}
+        print(f"{phase}: output dtypes in the step, by layer kind: {seen}")
+        for kind, dtype in self.expect.items():
+            if self.seen.get(kind) != {dtype}:
+                failures.append(f"{phase}: {kind} put out {seen.get(kind)}, not {dtype} "
+                                "(the bf16 policy is not live)")
+
+
+def step_against_plain(phase: str, state, train_step, batch, rng, alpha, nerf_noise,
+                       plain: dict, loss_tol: float, grad_tol: float, failures: list,
+                       unheld: tuple = ()) -> None:
+    """One more step with the kernels and the same step (state, batch,
+    random numbers) with `plain` ({name in the SIREN module: plain
+    version}) in the kernels' places; each loss and each net's grads are
+    held at the bounds, except the names in `unheld`, which are printed."""
+    import conditioned_nerf_gan_torch.models.siren as siren_module
+
+    snapshot, rng_state = copy.deepcopy(state), rng.get_state()
+    kernels = {name: getattr(siren_module, name) for name in plain}
+    runs = {}
+    for label in ("kernels", "plain"):
+        trial = copy.deepcopy(snapshot)
+        grads = record_grads(trial)
+        rng.set_state(rng_state)
+        if label == "plain":
+            for name, fn in plain.items():
+                setattr(siren_module, name, fn)
+        try:
+            _, metrics = train_step(trial, batch, rng, alpha, nerf_noise)
+        finally:
+            for name, fn in kernels.items():
+                setattr(siren_module, name, fn)
+        runs[label] = ({k: float(v) for k, v in metrics.items()}, grads)
+        del trial
+        torch.cuda.empty_cache()
+    (loss_k, grad_k), (loss_p, grad_p) = runs["kernels"], runs["plain"]
+    readings = [(k, abs(loss_k[k] - loss_p[k]) / max(abs(loss_p[k]), 1e-30), loss_tol,
+                 f"{k} kernels {loss_k[k]:.7f} plain {loss_p[k]:.7f}") for k in loss_k]
+    readings += [(net, ((grad_k[net] - grad_p[net]).norm() / grad_p[net].norm()).item(),
+                  grad_tol, f"{net} grads |kernels - plain|_2/|plain|_2, |plain|_2 "
+                  f"{grad_p[net].norm().item():.3e},") for net in grad_k]
+    for name, rel, tol, text in readings:
+        held = name not in unheld
+        print(f"{phase}: {text} rel {rel:.3e} "
+              + (f"(bound {tol})" if held else "(through the bf16 D: printed; held on the "
+                                               "fp32 path's step)"))
+        if held and not rel <= tol:
+            failures.append(f"{phase}: " + (f"{name} grads differ" if name in grad_k
+                                            else f"{name} differs") + " from the plain step")
+
+
+def fp32_bench_step(phase: str, preset: str, step: int, device, failures: list,
+                    plain: dict | None = None) -> None:
+    """The same stage's step with the encoder and D at compute_dtype None
+    (the fp32 path; G keeps the policy, which routes its SIREN to K1 and
+    K2), on a bench of its own: one step timed after a warm-up (seconds and
+    peak memory); with `plain`, then the kernels against the plain versions
+    at phase 5's bounds, every number held."""
+    from conditioned_nerf_gan_torch.infer import build_models
+    from conditioned_nerf_gan_torch.models import make_discriminator
+    from conditioned_nerf_gan_torch.training import (
+        build_stage_bench,
+        create_train_state,
+        make_train_step,
+    )
+
+    bench = build_stage_bench(preset, stage=2, step=step)
+    # fp32 twins of the bench's encoder and D, with its weights
+    encoder = build_models(dict(bench.meta, compute_dtype=None))[1]
+    encoder.load_state_dict(bench.encoder.state_dict())
+    disc = None
+    if bench.discriminator is not None:
+        disc = make_discriminator(bench.meta["discriminator"])
+        disc.load_state_dict(bench.discriminator.state_dict())
+    nets = [bench.generator, encoder, disc]
+    for net in nets:
+        if net is not None:
+            net.to(device)
+    state = create_train_state(*nets, bench.config)
+    train_step = make_train_step(bench.config)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in bench.batch.items()}
+    rng = torch.Generator(device=device).manual_seed(0)
+    precision_line(phase, dict(encoder=encoder, D=disc))
+    train_step(state, batch, rng, bench.alpha, bench.nerf_noise)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_step(state, batch, rng, bench.alpha, bench.nerf_noise)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"{phase}: the encoder" + (" and D" if disc is not None else "")
+          + f" at compute_dtype None (fp32), one step after a warm-up: {seconds:.4f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if plain is not None:
+        step_against_plain(phase + " (fp32 path)", state, train_step, batch, rng, bench.alpha,
+                           bench.nerf_noise, plain, STEP_LOSS_TOL, STEP_GRAD_TOL, failures)
+    del state, batch, nets, encoder, disc, bench
+    torch.cuda.empty_cache()
+
+
 def phase5_train(device, failures: list) -> tuple[int, int]:
     """The stage-2 train step at full width; returns the two kernels'
     launches over the warm-up and timed steps (the main path's run; the
     comparison and profiled steps after it are not counted)."""
-    import conditioned_nerf_gan_torch.models.siren as siren_module
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
         film_siren_mlp,
         film_siren_mlp_bwd,
@@ -990,6 +1171,7 @@ def phase5_train(device, failures: list) -> tuple[int, int]:
           f"{r.ray_chunks}, {meta['discriminator']} R1 {cfg.r1_lambda}, alpha "
           f"{bench.alpha}, nerf_noise {bench.nerf_noise}, pcl "
           f"{tuple(batch['pcl'].shape)}; set-up {time.perf_counter() - t0:.2f} s")
+    precision_line("phase 5", dict(PointNet=nets["E"], D=nets["D"]))
     before = {name: [p.detach().clone() for p in net.parameters()]
               for name, net in nets.items()}
 
@@ -998,11 +1180,14 @@ def phase5_train(device, failures: list) -> tuple[int, int]:
     fwd_total = bwd_total = 0
     step_s = []
     for i in range(1 + TRAIN_TIMED_STEPS):
+        probe = PolicyProbe(nets["E"]) if i == 0 else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch, rng, bench.alpha, bench.nerf_noise)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        if probe is not None:
+            probe.check("phase 5", failures)
         fwd, bwd = film_siren_mlp.launches, film_siren_mlp_bwd.launches
         fwd_total, bwd_total = fwd_total + fwd, bwd_total + bwd
         film_siren_mlp.launches = film_siren_mlp_bwd.launches = 0
@@ -1030,34 +1215,9 @@ def phase5_train(device, failures: list) -> tuple[int, int]:
 
     # one more step with the kernels, and the same step (state, batch, random
     # numbers) with the plain versions in both kernels' places
-    snapshot, rng_state = copy.deepcopy(state), rng.get_state()
-    runs = {}
-    for label in ("kernels", "plain"):
-        trial = copy.deepcopy(snapshot)
-        grads = record_grads(trial)
-        rng.set_state(rng_state)
-        if label == "plain":
-            siren_module.film_siren_mlp = PlainFilmSiren.apply
-        try:
-            _, metrics = train_step(trial, batch, rng, bench.alpha, bench.nerf_noise)
-        finally:
-            siren_module.film_siren_mlp = film_siren_mlp
-        runs[label] = ({k: float(v) for k, v in metrics.items()}, grads)
-        del trial
-    (loss_k, grad_k), (loss_p, grad_p) = runs["kernels"], runs["plain"]
-    for k in loss_k:
-        rel = abs(loss_k[k] - loss_p[k]) / max(abs(loss_p[k]), 1e-30)
-        print(f"phase 5: {k} kernels {loss_k[k]:.7f} plain {loss_p[k]:.7f} "
-              f"(rel {rel:.3e}, bound {STEP_LOSS_TOL})")
-        if not rel <= STEP_LOSS_TOL:
-            failures.append(f"phase 5: {k} differs from the plain step")
-    for net in ("G", "E", "D"):
-        rel = ((grad_k[net] - grad_p[net]).norm() / grad_p[net].norm()).item()
-        print(f"phase 5: {net} grads |kernels - plain|_2/|plain|_2 {rel:.3e} "
-              f"(bound {STEP_GRAD_TOL}), |plain|_2 {grad_p[net].norm().item():.3e}")
-        if not rel <= STEP_GRAD_TOL:
-            failures.append(f"phase 5: {net} grads differ from the plain step")
-    del runs, snapshot
+    step_against_plain("phase 5", state, train_step, batch, rng, bench.alpha, bench.nerf_noise,
+                       dict(film_siren_mlp=PlainFilmSiren.apply), STEP_LOSS_TOL, STEP_GRAD_TOL,
+                       failures, unheld=THROUGH_D)
 
     # one profiled step: device busy share against the timed steps' mean
     profiled = profile_device(
@@ -1072,6 +1232,10 @@ def phase5_train(device, failures: list) -> tuple[int, int]:
               f"{busy_ms:.3f} ms; busy share {busy_ms / mean_ms:.4f} of the timed "
               f"steps' mean {mean_ms:.3f} ms (idle {1 - busy_ms / mean_ms:.4f})")
         print_top("phase 5", by_name, n=12)
+    del state, batch, nets, bench
+    torch.cuda.empty_cache()
+    fp32_bench_step("phase 5", "thousand", TRAIN_STEP, device, failures,
+                    plain=dict(film_siren_mlp=PlainFilmSiren.apply))
     return fwd_total, bwd_total
 
 
@@ -1447,7 +1611,8 @@ def phase7_dg_serve(device, build_dir, failures: list):
     print(f"phase 7: dg preset, step {DG_STEP}: {cur['unet']} -> "
           f"{cur['generator']}, {IMAGE_SIZE}^2, {cur['num_steps']}+{cur['num_steps']} "
           f"samples, ray_chunks {chunks}, white_back {cur['white_back']}, fov "
-          f"{cur['fov']}, cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
+          f"{cur['fov']}")
+    precision_line("phase 7", dict(UNet3D=inf.encoder))
     requests = make_voxel_requests(cur, REQUESTS, seed=0)
     occupancy = [float(c["voxel"][..., 0].mean()) for c, _ in requests]
     print(f"phase 7: {REQUESTS} requests of {BATCH} grids {VOXEL_RES}^3 x 4 "
@@ -1515,7 +1680,6 @@ def phase9_dg_train(device, failures: list) -> dict:
     """The voxel family's stage-2 train step at full width; returns the four
     kernels' launches per step in the main path's run (warm-up and timed
     steps; the comparison and profiled steps after it are not counted)."""
-    import conditioned_nerf_gan_torch.models.siren as siren_module
     from conditioned_nerf_gan_torch.ops.grid_sample import trilinear_point_features
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
         film_siren_mlp,
@@ -1563,6 +1727,7 @@ def phase9_dg_train(device, failures: list) -> dict:
           f"grad_accum_scale {cfg.grad_accum_scale}; design launches per step K1 {design[0]}, "
           f"K2 {design[1]}, trilinear {design[2]}, trilinear backward {design[3]}; set-up "
           f"{time.perf_counter() - t0:.2f} s")
+    precision_line("phase 9", dict(UNet3D=nets["E"]))
     before = {name: [p.detach().clone() for p in net.parameters()]
               for name, net in nets.items()}
 
@@ -1570,11 +1735,14 @@ def phase9_dg_train(device, failures: list) -> dict:
     take_counts()
     step_s, totals = [], [0, 0, 0, 0]
     for i in range(1 + TRAIN_TIMED_STEPS):
+        probe = PolicyProbe(nets["E"]) if i == 0 else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch, rng, bench.alpha, bench.nerf_noise)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        if probe is not None:
+            probe.check("phase 9", failures)
         counts = take_counts()
         totals = [t + c for t, c in zip(totals, counts)]
         losses = {k: float(v) for k, v in metrics.items()}
@@ -1600,40 +1768,13 @@ def phase9_dg_train(device, failures: list) -> dict:
 
     # one more step with the kernels, and the same step (state, batch, random
     # numbers) with the plain versions in all four kernels' places
-    snapshot, rng_state = copy.deepcopy(state), rng.get_state()
-    runs = {}
-    for label in ("kernels", "plain"):
-        trial = copy.deepcopy(snapshot)
-        grads = record_grads(trial)
-        rng.set_state(rng_state)
-        if label == "plain":
-            siren_module.film_siren_mlp = PlainFilmSiren.apply
-            siren_module.trilinear_point_features = (
-                lambda volume, coords, **_: PlainTrilinear.apply(volume, coords))
-        try:
-            _, metrics = train_step(trial, batch, rng, bench.alpha, bench.nerf_noise)
-        finally:
-            siren_module.film_siren_mlp = film_siren_mlp
-            siren_module.trilinear_point_features = trilinear_point_features
-        runs[label] = ({k: float(v) for k, v in metrics.items()}, grads)
-        del trial
-        torch.cuda.empty_cache()
+    step_against_plain(
+        "phase 9", state, train_step, batch, rng, bench.alpha, bench.nerf_noise,
+        dict(film_siren_mlp=PlainFilmSiren.apply,
+             trilinear_point_features=lambda volume, coords, **_: PlainTrilinear.apply(
+                 volume, coords)),
+        DG_STEP_LOSS_TOL, DG_STEP_GRAD_TOL, failures)
     take_counts()
-    (loss_k, grad_k), (loss_p, grad_p) = runs["kernels"], runs["plain"]
-    for k in loss_k:
-        rel = abs(loss_k[k] - loss_p[k]) / max(abs(loss_p[k]), 1e-30)
-        print(f"phase 9: {k} kernels {loss_k[k]:.7f} plain {loss_p[k]:.7f} "
-              f"(rel {rel:.3e}, bound {DG_STEP_LOSS_TOL})")
-        if not rel <= DG_STEP_LOSS_TOL:
-            failures.append(f"phase 9: {k} differs from the plain step")
-    for net in ("G", "E"):
-        rel = ((grad_k[net] - grad_p[net]).norm() / grad_p[net].norm()).item()
-        print(f"phase 9: {net} grads |kernels - plain|_2/|plain|_2 {rel:.3e} "
-              f"(bound {DG_STEP_GRAD_TOL}), |plain|_2 {grad_p[net].norm().item():.3e}")
-        if not rel <= DG_STEP_GRAD_TOL:
-            failures.append(f"phase 9: {net} grads differ from the plain step")
-    del runs, snapshot
-    torch.cuda.empty_cache()
 
     # one profiled step: device busy share against the timed steps' mean
     profiled = profile_device(
@@ -1672,6 +1813,8 @@ def phase9_dg_train(device, failures: list) -> dict:
                         f"{cfg.batch_split} and none")
     del state, batch, nets, bench
     torch.cuda.empty_cache()
+    fp32_bench_step("phase 9", "dg", DG_TRAIN_STEP, device, failures)
+    take_counts()
 
     # the step's dV path: one zeroing a render with grad and the lookups'
     # scatters into it (the profiled step's kernel time), no sums
@@ -1958,10 +2101,13 @@ def phase10_trainer(device, build_dir, failures: list) -> dict:
             c.launches = 0
         return counts
 
-    print("phase 10: precision: PointNet, D and the U-Net in fp32 with TF32 off (this "
-          "script's comparator setting, for the whole process; the trainer itself "
-          "leaves TF32 at PyTorch's default), the SIRENs through K1 and K2 (bf16 "
-          "products, fp32 sums, sin7)")
+    print("phase 10: precision: the presets' policy (compute_dtype bfloat16): PointNet, "
+          "D and the U-Net's block convs in bf16 with fp32 params, GroupNorm and the "
+          "U-Net's final conv fp32, the SIRENs through K1 and K2 (bf16 products, fp32 "
+          "sums, sin7); TF32 off for fp32 products (this script's comparator setting, for "
+          "the whole process; the trainer itself leaves TF32 at PyTorch's default), "
+          "matmul.allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
@@ -2094,6 +2240,187 @@ def phase10_trainer(device, build_dir, failures: list) -> dict:
                 trainer_infer=infer_counts, stages=stages, dg_stages=dg_stages)
 
 
+EVAL_FIXTURE = dict(n_cars=6, n_views=12, img_size=128, n_points=65536,
+                    voxel_resolutions=(64,))  # 12 views a car: oFID needs 10
+EVAL_STEP = 3  # milestones at 0, 1, 2, 3: the eval runs at stage 3 (128^2, ray_chunks 16)
+EVAL_CPU_VIEWS = 4  # views of the first val car recomputed on the CPU
+# card against CPU, the same nets on the same PNGs: fp32 convs (TF32 off) in
+# other orders and algorithms; bound on max|card - CPU| / max|CPU| of each
+# feature set [3.17e-6, 768; 2.01e-6, 2048] and on the relative LPIPS
+# difference [1.37e-7] (H100, PR 10)
+EVAL_FEATURE_TOL = 1e-5
+EVAL_LPIPS_TOL = 1e-6
+# Newton-Schulz (50 iterations) in fp32, the dtype the oFID path
+# (`compute_ofid_from_batch(exact=False)`) hands it, as the JAX package's
+# does, on the card against scipy's sqrtm: a seeded well-conditioned 768^2
+# covariance pair (eigenvalues of the product 0.09-14.3), relative trace
+# difference [3.2e-7 on the CPU]. On the oFID covariances of random-weight
+# features (singular: dead channels) the fp32 iteration diverges, in both
+# packages: the exact=False path is unsupported there; those readings, fp32
+# and fp64, are printed, not held
+EVAL_NS_TOL = 1e-5
+
+
+def phase11_eval(device, build_dir, failures: list) -> dict:
+    """Trainer.evaluate on the card: a thesis run at full width on a fixture
+    of EVAL_FIXTURE written on the card, the curriculum compressed to one
+    step a stage, eval_freq EVAL_STEP + 1: at step EVAL_STEP the Trainer
+    saves, renders the `fid` subset (every view of the val cars) at 128^2
+    with 96 + 96 samples through K1 and scores FID, oFID, LPIPS and PSNR.
+    Returns the K1 launches of the eval's render and its seconds."""
+    import os
+
+    import conditioned_nerf_gan_torch.eval.fid_evaluation as fid_evaluation
+    from conditioned_nerf_gan_torch import train
+    from conditioned_nerf_gan_torch.config import curriculum_to_json
+    from conditioned_nerf_gan_torch.data.synthetic import make_synthetic_shapenet
+    from conditioned_nerf_gan_torch.eval.metrics import (
+        _inception_features,
+        compute_lpips_batch,
+        newton_schulz_sqrt_trace,
+        read_rgb,
+    )
+    from conditioned_nerf_gan_torch.eval.weights import RANDOM_INIT_STAMP_PREFIX
+    from conditioned_nerf_gan_torch.models.generator import RenderConfig
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import film_siren_mlp
+    from scipy import linalg
+
+    seconds: dict[str, float] = {}
+    launches: dict[str, int] = {}
+    saved = {name: getattr(fid_evaluation, name) for name in (
+        "setup_evaluation", "output_images", "compute_metrics_from_dirs")}
+
+    def timed(name):
+        def wrapper(*args, **kwargs):
+            before = film_siren_mlp.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = film_siren_mlp.launches - before
+            return out
+        return wrapper
+
+    env = os.environ.get("CNG_EVAL_IMAGES")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ds_root = make_synthetic_shapenet(tmp / "data", **EVAL_FIXTURE, device=device)
+        print(f"phase 11: fixture {EVAL_FIXTURE} written on the card in "
+              f"{time.perf_counter() - t0:.2f} s")
+        run = tmp / "thesis"
+        run.mkdir()
+        cur = compressed_curriculum(None, 1, ds_root)
+        curriculum_to_json(cur, run / "curriculum.json")
+        os.environ["CNG_EVAL_IMAGES"] = str(tmp / "eval_images")
+        for name in saved:
+            setattr(fid_evaluation, name, timed(name))
+        film_siren_mlp.launches = 0
+        try:
+            with TrainerProbe((film_siren_mlp,)) as probe:
+                t0 = time.perf_counter()
+                rc = train.main(["-o", str(run), "--stop_step", str(EVAL_STEP), "-p", "1000",
+                                 "-s", "1000", "-e", str(EVAL_STEP + 1),
+                                 "--device", str(device)])
+                run_s = time.perf_counter() - t0
+        finally:
+            for name, fn in saved.items():
+                setattr(fid_evaluation, name, fn)
+            if env is None:
+                os.environ.pop("CNG_EVAL_IMAGES", None)
+            else:
+                os.environ["CNG_EVAL_IMAGES"] = env
+        trainer = probe.trainers[0]
+        precision_line("phase 11", dict(PointNet=trainer.state.encoder,
+                                        D=trainer.state.discriminator))
+        meta = trainer._eval_metadata(img_size=128, num_steps=96)
+        render = RenderConfig.from_metadata(meta, perturb=False)
+        n_views = len(trainer.fidset)
+        batch = meta["fid"]["render_batch"]
+        design = (-(-n_views // batch) * max(render.ray_chunks, 1)
+                  * (2 if render.hierarchical_sample else 1))
+        print(f"phase 11: thesis run to step {EVAL_STEP} (rc {rc}) in {run_s:.2f} s; eval at "
+              f"step {EVAL_STEP}: the fid subset {n_views} views at "
+              f"{meta['fid']['target_size']}^2, {meta['num_steps']}+{meta['num_steps']} "
+              f"samples, render batch {batch}, ray_chunks {render.ray_chunks}; seconds: "
+              f"real-image setup {seconds.get('setup_evaluation', float('nan')):.3f}, render "
+              f"{seconds.get('output_images', float('nan')):.3f}, metrics "
+              f"{seconds.get('compute_metrics_from_dirs', float('nan')):.3f}; K1 launches in "
+              f"the render {launches.get('output_images')} (design {design})")
+        if rc != 0 or launches.get("output_images") != design:
+            failures.append(f"phase 11: the run returned {rc}; K1 launches in the eval "
+                            f"render {launches.get('output_images')}, design {design}")
+        lines = (run / "fid.txt").read_text().splitlines() if (run / "fid.txt").exists() else []
+        rows = [line.split() for line in lines if line.strip() and not line.startswith("#")]
+        print(f"phase 11: fid.txt: {lines}")
+        if (not lines or not lines[0].startswith(RANDOM_INIT_STAMP_PREFIX) or len(rows) != 1
+                or len(rows[0]) != 5 or rows[0][0] != str(EVAL_STEP)
+                or not all(np.isfinite(float(v)) for v in rows[0][1:])):
+            failures.append("phase 11: fid.txt lacks its stamp or one line of four finite "
+                            "metrics")
+
+        # the card's nets against the same nets on the CPU, on the same PNGs
+        car = sorted((run / "evaluation").glob("*.png"))[0].name.rsplit("_", 1)[0]
+        real_dir = tmp / "eval_images" / ds_root.stem / f"{meta['fid']['subset']}_128"
+        names = [f"{car}_{i:04}.png" for i in range(EVAL_FIXTURE["n_views"])]
+        real = np.stack([read_rgb(real_dir / n) for n in names]).astype(np.float32) / 255
+        gen = np.stack([read_rgb(run / "evaluation" / n) for n in names]).astype(np.float32) / 255
+        card = _inception_features(np.concatenate([real, gen]), device)
+        k = EVAL_CPU_VIEWS
+        cpu = _inception_features(np.concatenate([real[:k], gen[:k]]), "cpu")
+        for dim, c, h in ((768, card[0], cpu[0]), (2048, card[1], cpu[1])):
+            c = np.concatenate([c[:k], c[len(names):len(names) + k]])
+            err = float(np.abs(c - h).max() / np.abs(h).max())
+            print(f"phase 11: Inception {dim} features of {2 * k} PNGs, card against CPU: "
+                  f"max|card - CPU| / max|CPU| {err:.3e} (bound {EVAL_FEATURE_TOL})")
+            if not err <= EVAL_FEATURE_TOL:
+                failures.append(f"phase 11: the card's Inception {dim} features differ from "
+                                "the CPU's")
+        l_card = compute_lpips_batch(real[:k], gen[:k], device)
+        l_cpu = compute_lpips_batch(real[:k], gen[:k], "cpu")
+        err = abs(l_card - l_cpu) / abs(l_cpu)
+        print(f"phase 11: LPIPS of {k} pairs, card {l_card:.7f} CPU {l_cpu:.7f} (rel "
+              f"{err:.3e}, bound {EVAL_LPIPS_TOL})")
+        if not err <= EVAL_LPIPS_TOL:
+            failures.append("phase 11: the card's LPIPS differs from the CPU's")
+        rng = np.random.default_rng(11)
+        pair = []
+        for _ in range(2):
+            q, _ = np.linalg.qr(rng.normal(size=(768, 768)))
+            mix = q * rng.uniform(0.5, 2.0, 768)
+            x = rng.normal(size=(4096, 768)) @ mix.T
+            pair.append(np.cov(x, rowvar=False))
+        prod = pair[0] @ pair[1]
+        exact = float(np.trace(linalg.sqrtm(prod)).real)
+        ns32 = float(newton_schulz_sqrt_trace(torch.as_tensor(prod, dtype=torch.float32,
+                                                              device=device)))
+        err = abs(ns32 - exact) / abs(exact)
+        print(f"phase 11: Newton-Schulz in fp32 on the card, a seeded 768^2 covariance pair: "
+              f"{ns32:.7f}, scipy sqrtm {exact:.7f} (rel {err:.3e}, bound {EVAL_NS_TOL})")
+        if not err <= EVAL_NS_TOL:
+            failures.append("phase 11: the card's Newton-Schulz trace differs from scipy's")
+        f_real = card[0][:len(names)].reshape(-1, 768).astype(np.float64)
+        f_gen = card[0][len(names):].reshape(-1, 768).astype(np.float64)
+        # random-weight features leave channels dead, so the covariances are
+        # singular: the pair with frechet_distance's own fallback offset, 1e-6
+        # on the diagonal
+        offset = np.eye(768) * 1e-6
+        prod = (np.cov(f_real, rowvar=False) + offset) @ (np.cov(f_gen, rowvar=False) + offset)
+        exact = float(np.trace(linalg.sqrtm(prod)).real)
+        readings = {str(dtype).replace("torch.", ""): float(newton_schulz_sqrt_trace(
+            torch.as_tensor(prod, dtype=dtype, device=device)))
+            for dtype in (torch.float32, torch.float64)}
+        print(f"phase 11: Newton-Schulz on {car}'s oFID covariance pair (768^2, singular) on "
+              f"the card, printed, not held (the exact=False oFID path is unsupported on "
+              f"random-weight features): {readings}, scipy sqrtm {exact:.10f} (fp64 rel "
+              f"{abs(readings['float64'] - exact) / abs(exact):.3e})")
+        fid_history = trainer.histories["fid_history"]
+    del trainer, probe
+    torch.cuda.empty_cache()
+    return dict(k1=launches.get("output_images", 0), seconds=seconds, fid_history=fid_history)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -2154,13 +2481,15 @@ def main() -> int:
                                      fwd["ms_by_shape"]["thesis render"]["ms"])
     dg = phase9_dg_train(device, failures)
     trainer = phase10_trainer(device, Path(build.BUILD_DIR), failures)
+    evaluation = phase11_eval(device, Path(build.BUILD_DIR), failures)
     if failures:
         raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
     thesis, dg_run = trainer["trainer"], trainer["dg_trainer"]
     fwd["launches_by_path"] = {"serve": serve_launches, "train": train_fwd,
                                "film_study": study["k1"], "trainer": thesis[0],
                                "trainer_resumed": trainer["resumed"][0],
-                               "trainer_infer": trainer["trainer_infer"][0]}
+                               "trainer_infer": trainer["trainer_infer"][0],
+                               "trainer_eval": evaluation["k1"]}
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     fwd32["launches_by_path"] = {"dg_serve": dg_k1, "dg_train": dg["k1"],
                                  "dg_trainer": dg_run[0]}

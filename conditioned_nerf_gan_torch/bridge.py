@@ -19,6 +19,10 @@ Optimizer state crosses with the same names: an optax chain's
 `exp_avg`, `nu` -> `exp_avg_sq` and `count` -> `step`
 (`load_optax_state`); `convert_train_checkpoint` turns a JAX trainer's
 `{step}.ckpt` into the port's trainer checkpoint.
+
+The metric nets' weights (the JAX package's flat `.npz` of FID-Inception
+and LPIPS-AlexNet, keyed by flax path) load with `load_flat_weights`
+(`eval/weights.py`), re-exported here.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .eval.weights import load_flat_weights  # noqa: F401  (re-exported)
 
 _RENAMES = (
     (re.compile(r"mapping_network\.TorchLinear_(\d+)"), r"mapping_network.layers.\1"),

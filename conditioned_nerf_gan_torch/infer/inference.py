@@ -51,13 +51,22 @@ def voxel_to_ndhwc(voxel: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(voxel).transpose(2, 1, 0, 3)).astype(np.float32)
 
 
+def compute_dtype(meta: dict) -> torch.dtype | None:
+    """The metadata's precision policy (`compute_dtype`, "bfloat16" in the
+    presets) as a torch dtype; None (fp32) without one."""
+    name = meta.get("compute_dtype")
+    return getattr(torch, name) if name else None
+
+
 def build_models(meta: dict, generator: torch.Generator | None = None):
     """Generator and encoder for a curriculum's resolved metadata, fp32
-    params initialised from `generator` (the JAX package's init schemes)."""
+    params initialised from `generator` (the JAX package's init schemes).
+    Both take the metadata's `compute_dtype` policy, as the JAX Trainer and
+    Inferencer build them."""
     gen_meta = meta["generator"]
     if not (meta["dataset"]["load_voxel"] or meta["dataset"]["load_pcl"]):
         raise ValueError("curriculum must enable load_pcl or load_voxel")
-    dtype_name = meta.get("compute_dtype")
+    dtype = compute_dtype(meta)
     G = ImplicitGenerator3d(
         siren_type=gen_meta["siren_type"],
         z_dim=gen_meta["z_dim"],
@@ -66,15 +75,15 @@ def build_models(meta: dict, generator: torch.Generator | None = None):
         hidden_dim=gen_meta.get("hidden_dim", 256),
         drop_out=gen_meta.get("drop_out", meta.get("dropout_ratio", 0)),
         mapping_network=gen_meta.get("mapping_network", "CustomMappingNetwork"),
-        compute_dtype=getattr(torch, dtype_name) if dtype_name else None,
+        compute_dtype=dtype,
         use_fast_sin=meta.get("use_fast_sin", False),
         use_kernel=meta.get("use_pallas", False),
         generator=generator,
     )
     if meta["dataset"]["load_voxel"]:
-        E = make_unet(generator=generator, **meta["unet"])
+        E = make_unet(compute_dtype=dtype, generator=generator, **meta["unet"])
     else:
-        E = ResnetPointnet(c_dim=gen_meta["z_dim"], generator=generator)
+        E = ResnetPointnet(c_dim=gen_meta["z_dim"], compute_dtype=dtype, generator=generator)
     return G, E
 
 

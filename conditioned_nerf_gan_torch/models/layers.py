@@ -10,10 +10,11 @@ package's (which replicate PyTorch's), drawn from an explicit
   * kaiming_leaky(a=0.2): W ~ N(0, gain^2/fan_in), gain = sqrt(2/(1+a^2)),
                           times `scale` (0.25 on the mapping net's last layer)
 
-Everything here is fp32 but `FiLMLayer` under a `compute_dtype`, which does
-what the JAX layer does under its bf16 policy. Do not wrap any of it in
-`torch.autocast`: the sin inputs must stay fp32 (freq*x with freq ~ 30-45 is
-far too coarse in bf16).
+Everything here is fp32 unless a layer is given a `compute_dtype`: then
+`FiLMLayer` and `TorchLinear` do what the JAX layers do under the presets'
+bf16 policy, each cast written where the JAX package writes it. Do not wrap
+any of it in `torch.autocast`: the sin inputs must stay fp32 (freq*x with
+freq ~ 30-45 is far too coarse in bf16).
 """
 
 from __future__ import annotations
@@ -62,19 +63,58 @@ def zeros_init(weight: torch.Tensor, generator=None) -> None:
     weight.zero_()
 
 
+class _MixedLinear(torch.autograd.Function):
+    """x @ W^T with `dtype` operands and fp32 sums and output, and a
+    backward whose operands are `dtype` too (the cotangent rounded to it),
+    summed in fp32: the JAX package's `ops/mixed.py::mixed_dot` and its
+    custom VJP. The grads come back in the primal dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, weight, dtype):
+        xl, wl = x.to(dtype), weight.to(dtype)
+        ctx.save_for_backward(xl, wl)
+        ctx.dtypes = (x.dtype, weight.dtype)
+        # bf16 products are exact in fp32: round the operands, multiply in fp32
+        return F.linear(xl.float(), wl.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        xl, wl = ctx.saved_tensors
+        x_dtype, w_dtype = ctx.dtypes
+        gl = g.to(xl.dtype).float()
+        dx = (gl @ wl.float()).to(x_dtype)
+        dw = (gl.reshape(-1, gl.shape[-1]).t() @ xl.reshape(-1, xl.shape[-1]).float())
+        return dx, dw.to(w_dtype), None
+
+
 class TorchLinear(nn.Module):
     """Linear layer with the JAX package's init choices.
 
     The bias is U(+-1/sqrt(fan_in)) unless `bias_init_zero`; `use_bias=False`
-    drops it. Where the JAX layer takes a pooled `extra=` operand, the
-    callers here concatenate it onto the input (an exact rewrite).
+    drops it.
+
+    `compute_dtype` (None: fp32) is the JAX layer's `dtype`, params staying
+    fp32. With `fp32_out=False` (the AMP policy of PointNet) the operands
+    are cast to it, the product is rounded to it and the bias is added in
+    it; with `fp32_out=True` (the default) the operands are cast to it and
+    the product is summed and returned in fp32, with `_MixedLinear`'s
+    backward.
+
+    `extra` (B, 1, K_e) is an operand constant over the point axis: the
+    layer computes `self(concat([x, broadcast(extra)], -1))` with one weight
+    of fan_in K_x + K_e. In fp32 it does just that; under a compute_dtype it
+    takes the JAX form, a once-per-batch product with the weight's tail
+    columns added to the per-point one, each rounded as the JAX layer
+    rounds it.
     """
 
     def __init__(self, in_features: int, out_features: int, *,
                  kernel_init: Init = torch_default_uniform, use_bias: bool = True,
-                 bias_init_zero: bool = False,
-                 generator: torch.Generator | None = None):
+                 bias_init_zero: bool = False, compute_dtype: torch.dtype | None = None,
+                 fp32_out: bool = True, generator: torch.Generator | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        self.fp32_out = fp32_out
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if use_bias else None
         with torch.no_grad():
@@ -86,8 +126,27 @@ class TorchLinear(nn.Module):
                     bound = 1.0 / math.sqrt(in_features)
                     self.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+    def forward(self, x: torch.Tensor, extra: torch.Tensor | None = None) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            if extra is not None:
+                x = torch.cat([x, extra.expand(*x.shape[:-1], -1)], dim=-1)
+            return F.linear(x, self.weight, self.bias)
+        if extra is not None:
+            dx = x.shape[-1]
+            w_x, w_e = self.weight[:, :dx], self.weight[:, dx:]
+            if self.fp32_out:
+                y = (F.linear(x.to(dt).float(), w_x.to(dt).float())
+                     + F.linear(extra.to(dt).float(), w_e.to(dt).float()))
+            else:
+                y = F.linear(x.to(dt), w_x.to(dt)) + F.linear(extra.to(dt), w_e.to(dt))
+        elif self.fp32_out:
+            y = _MixedLinear.apply(x, self.weight, dt)
+        else:
+            y = F.linear(x.to(dt), self.weight.to(dt))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
 
 
 class FiLMLayer(nn.Module):

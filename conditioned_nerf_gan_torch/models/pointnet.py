@@ -1,8 +1,15 @@
 """ResNet-PointNet encoder (port of conditioned_nerf_gan_tpu/models/pointnet.py).
 
-Colored point cloud (B, T, 6) -> global latent (B, c_dim), fp32. The JAX
-package's pooled-split `extra=` operand is written here as the concat it
-rewrites: each block after the first sees [x, max-pooled x].
+Colored point cloud (B, T, 6) -> global latent (B, c_dim), fp32. Each block
+after the first also sees the max-pool of its input over the points, as the
+`extra=` operand of its `fc_0` and `shortcut` (`TorchLinear`).
+
+`compute_dtype` is the JAX encoder's `dtype`: the presets' bf16 policy.
+Under it the products run with bf16 operands and bf16 outputs (fc_pos and
+the blocks, `fp32_out=False`), the activations, max-pools and shortcut adds
+stay bf16, the pooled half of a block's input is a once-per-batch product,
+and `fc_c` sums in fp32 and returns the latent in fp32, so `encode_pcl`'s
+whitening stays fp32. Params stay fp32. `None` is the fp32 path.
 """
 
 from __future__ import annotations
@@ -19,42 +26,44 @@ class ResnetBlockFC(nn.Module):
     dimension change; fc_1's weight starts at zero."""
 
     def __init__(self, size_in: int, size_out: int, size_h: int | None = None, *,
+                 compute_dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         size_h = size_h or min(size_in, size_out)
-        self.fc_0 = TorchLinear(size_in, size_h, generator=generator)
-        self.fc_1 = TorchLinear(size_h, size_out, kernel_init=zeros_init,
-                                generator=generator)
+        amp = dict(compute_dtype=compute_dtype, fp32_out=False, generator=generator)
+        self.fc_0 = TorchLinear(size_in, size_h, **amp)
+        self.fc_1 = TorchLinear(size_h, size_out, kernel_init=zeros_init, **amp)
         self.shortcut = (None if size_in == size_out else
-                         TorchLinear(size_in, size_out, use_bias=False,
-                                     generator=generator))
+                         TorchLinear(size_in, size_out, use_bias=False, **amp))
 
     def forward(self, x: torch.Tensor, pooled: torch.Tensor | None = None):
-        """pooled: optional (B, 1, F) context, concatenated onto every point."""
-        if pooled is not None:
-            x = torch.cat([x, pooled.expand(-1, x.shape[1], -1)], dim=-1)
-        dx = self.fc_1(F.relu(self.fc_0(F.relu(x))))
-        x_s = x if self.shortcut is None else self.shortcut(x)
-        return x_s + dx
+        """pooled: optional (B, 1, F) context, the tail of every point's input."""
+        relu_pooled = F.relu(pooled) if pooled is not None else None
+        dx = self.fc_1(F.relu(self.fc_0(F.relu(x), extra=relu_pooled)))
+        x_s = x if self.shortcut is None else self.shortcut(x, extra=pooled)
+        return x_s.to(dx.dtype) + dx
 
 
 class ResnetPointnet(nn.Module):
     """(B, T, dim) points -> (B, c_dim) via 5 ResNet blocks and max-pooling."""
 
     def __init__(self, c_dim: int = 512, dim: int = 6, hidden_dim: int = 512, *,
+                 compute_dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         h = hidden_dim
-        self.fc_pos = TorchLinear(dim, 2 * h, generator=generator)
+        self.fc_pos = TorchLinear(dim, 2 * h, compute_dtype=compute_dtype, fp32_out=False,
+                                  generator=generator)
         self.blocks = nn.ModuleList(
-            [ResnetBlockFC(2 * h, h, generator=generator) for _ in range(5)])
-        self.fc_c = TorchLinear(h, c_dim, generator=generator)
+            [ResnetBlockFC(2 * h, h, compute_dtype=compute_dtype, generator=generator)
+             for _ in range(5)])
+        self.fc_c = TorchLinear(h, c_dim, compute_dtype=compute_dtype, generator=generator)
 
     def forward(self, p: torch.Tensor) -> torch.Tensor:
         net = self.blocks[0](self.fc_pos(p))
         for block in self.blocks[1:]:
             net = block(net, pooled=net.amax(dim=1, keepdim=True))
-        return self.fc_c(F.relu(net.amax(dim=1)))
+        return self.fc_c(F.relu(net.amax(dim=1))).float()
 
 
 def encode_pcl(encoder: nn.Module, pcl: torch.Tensor, *, noise_weight: float = 0.0,

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..config import extract_metadata, load_curriculum
-from ..infer.inference import build_models, voxel_to_ndhwc
+from ..infer.inference import build_models, compute_dtype, voxel_to_ndhwc
 from ..models.discriminators import make_discriminator
 from ..ops.rays import create_cam2world_matrix, sample_camera_positions
 from .schedules import fade_alpha, nerf_noise_schedule
@@ -89,9 +89,10 @@ def build_stage_bench(preset: str = "thousand", stage: int = 2, step: int | None
                       meta_overrides: dict | None = None) -> StageBench:
     """The train-step workload of a curriculum at `step` (default: the
     stage's first step): the thesis model (`thousand`) or an experiment of
-    its chain (`dg`, `dg_dis`, ...). fp32 models with weights drawn from
-    seed 0, the stage's TrainStepConfig, fade-in alpha and density-noise
-    std, and a batch of `batch_size` random images in [-1, 1], cameras on
+    its chain (`dg`, `dg_dis`, ...). Models under the metadata's
+    `compute_dtype` policy (fp32 params) with weights drawn from seed 0,
+    the stage's TrainStepConfig, fade-in alpha and density-noise std, and a
+    batch of `batch_size` random images in [-1, 1], cameras on
     the shell and the conditioning: point clouds of 65,536 x
     num_points_ratio points, or, for a voxel preset, voxel grids of side
     `voxel_resolution` (64). `meta_overrides` replaces metadata keys (a
@@ -110,7 +111,8 @@ def build_stage_bench(preset: str = "thousand", stage: int = 2, step: int | None
 
     init = torch.Generator().manual_seed(0)
     G, E = build_models(meta, generator=init)
-    D = (make_discriminator(meta["discriminator"], generator=init)
+    D = (make_discriminator(meta["discriminator"], compute_dtype=compute_dtype(meta),
+                            generator=init)
          if meta["enable_discriminator"] else None)
     cfg = TrainStepConfig.from_metadata(meta)
     # the trainer's static gate: no density noise once the schedule is 0

@@ -20,8 +20,10 @@ conditioned_nerf_gan_tpu/training/trainer.py).
     `fold_in(rng, state.step)`; with the loader position (epoch, offset)
     saved in each checkpoint, a resumed run replays the uninterrupted one
   * the stats table every print_freq, sample grids and val/test losses
-    every sampling_interval, a checkpoint every eval_freq and at the end,
-    and a torch.profiler trace of steps 10-15 with --profile_dir.
+    every sampling_interval, a checkpoint and the eval metrics (FID, oFID,
+    LPIPS, PSNR of the `fid` subset, `eval/`) every eval_freq, appended to
+    fid.txt and fid_history, a checkpoint at the end, and a torch.profiler
+    trace of steps 10-15 with --profile_dir.
 
 Not ported, each a workaround or a later item:
   * `steps_per_dispatch` chaining, its window clamp and its starvation
@@ -30,10 +32,7 @@ Not ported, each a workaround or a later item:
   * the mesh trim and regrow, `_local_params` and multi-process runs: one
     GPU here, data parallelism is ROADMAP A14;
   * `utils/cache.py` (XLA's compile cache): nothing is compiled ahead here
-    but the CUDA kernels, which `ops/kernels/build.py` caches;
-  * the `fid` dataset and the metrics of `evaluate` (FID, oFID, LPIPS,
-    PSNR): ROADMAP A9. `evaluate` returns, as the JAX Trainer does when its
-    eval package does not import, and says so once a run.
+    but the CUDA kernels, which `ops/kernels/build.py` caches.
 """
 
 from __future__ import annotations
@@ -52,7 +51,8 @@ import torch
 
 from ..config import curriculum_to_json, extract_metadata, last_upsample_step, load_curriculum
 from ..data import DataLoader, ShapeNetDataset
-from ..infer.inference import build_models
+from ..eval.fid_evaluation import append_fid_line, evaluate_trainer
+from ..infer.inference import build_models, compute_dtype
 from ..models.discriminators import make_discriminator
 from ..models.generator import RenderConfig
 from ..models.pointnet import encode_pcl
@@ -140,7 +140,6 @@ class Trainer:
         self._loader_epoch = 0
         self._batch_offset = 0
         self._restored_loader_state: dict | None = None
-        self._evaluate_noted = False
         self._profiler = None
 
         ds_meta = self.metadata["dataset"]
@@ -158,6 +157,10 @@ class Trainer:
                                       shuffle=False, dataset_mode="val", **common)
         self.testset = ShapeNetDataset(ds_meta["path"], sample_size, ds_meta["testset"],
                                        shuffle=False, dataset_mode="test", **common)
+        fid = self.metadata["fid"]
+        self.fidset = ShapeNetDataset(ds_meta["path"], fid["target_size"], fid["subset"],
+                                      dataset_mode="test", load_img=False, load_depth=False,
+                                      load_cam=True, shuffle=False, **common)
 
     # ------------------------------------------------------------------
     # setup
@@ -176,10 +179,12 @@ class Trainer:
 
     def _build_models(self):
         """The nets of the first stage's metadata, fp32 params drawn from
-        the run's seed (the JAX package's init schemes)."""
+        the run's seed (the JAX package's init schemes), each under the
+        metadata's `compute_dtype` policy as the JAX Trainer builds them."""
         init = torch.Generator().manual_seed(self.seed)
         G, E = build_models(self.metadata, generator=init)
-        D = (make_discriminator(self.metadata["discriminator"], generator=init)
+        D = (make_discriminator(self.metadata["discriminator"],
+                                compute_dtype=compute_dtype(self.metadata), generator=init)
              if self.metadata["enable_discriminator"] else None)
         return G, E, D
 
@@ -592,13 +597,16 @@ class Trainer:
                             self._checkpoint_payload())
 
     def evaluate(self) -> None:
-        """FID / oFID / LPIPS / PSNR every eval_freq (utils.py:974-1016):
-        ROADMAP A9. Returns, as the JAX Trainer does without its eval
-        package, and says so once a run."""
+        """FID / oFID / LPIPS / PSNR every eval_freq (utils.py:974-1016): the
+        `fid` subset rendered at 128^2 with 96 samples a ray, scored against
+        its real images; a fid_history row and a fid.txt line."""
         if (self.step + 1) % self.args.eval_freq != 0:
             return
         self._flush_metrics()
-        if not self._evaluate_noted:
-            self._evaluate_noted = True
-            print("Trainer.evaluate: FID, oFID, LPIPS and PSNR are not ported yet "
-                  "(ROADMAP A9); no metrics computed", flush=True)
+        meta = self._eval_metadata(img_size=128, num_steps=96)
+        fid, ofid, lpips_score, psnr = evaluate_trainer(self, meta)
+        self.histories["fid_history"].append([self.step, fid, ofid, lpips_score, psnr])
+        append_fid_line(Path(self.args.output_dir) / "fid.txt", self.step, fid, ofid,
+                        lpips_score, psnr)
+        print(f"Metrics at step {self.step}: FID {fid} | oFID {ofid} | "
+              f"LPIPS {lpips_score} | PSNR {psnr}", flush=True)

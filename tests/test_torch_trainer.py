@@ -37,6 +37,15 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True)
+def no_eval(monkeypatch):
+    """Trainer.evaluate (FID, oFID, LPIPS, PSNR at eval_freq) is held by
+    tests/test_torch_eval.py; here it does nothing, as it did before the
+    eval was ported, so these runs test the training contract alone (one
+    eval takes ~40 s of this CPU, most of it its FID's 2048^2 sqrtm)."""
+    monkeypatch.setattr(Trainer, "evaluate", lambda self: None)
+
+
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
     return jdata.make_synthetic_shapenet(tmp_path_factory.mktemp("fixture"), n_cars=3,
