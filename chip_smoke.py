@@ -128,7 +128,22 @@ Refuses to run without CUDA (exit 1). Otherwise:
      Inception 768 and 2048 features and LPIPS held against the same nets
      on the CPU for the same PNGs, and Newton-Schulz in fp32 on the card
      against scipy's sqrtm on a seeded well-conditioned covariance pair
-     (on one car's singular oFID pair it is printed, not held).
+     (on one car's singular oFID pair it is printed, not held);
+ 12. the rest of inference on the card, through the infer CLI: on phase
+     10's thesis checkpoint the fixed-camera grid, the 240-frame orbit video
+     (an uncompressed AVI), the colored point clouds from 20 random cameras
+     and from the dataset's views masked by the GT depth (on a copy of the
+     checkpoint with more sigma bias: the trained one's clouds are empty,
+     no depth inside the ray's range), the density voxel
+     at 48^3 and 64^3 (K1 at B 1 and 110,592 or 262,144 points) and the
+     latent interpolation between two fixture cars; on phase 11's the
+     metrics into fid_inference.txt; on phase 10's dg checkpoint the voxel
+     and the video (K1 at Din 32 behind the trilinear kernel). Each mode's
+     seconds, launches against the design count and output (read back: the
+     .mrc header and values, the AVI's frames, the .obj's points, the
+     metric line), then the 64^3 sigma grid of each model against the same
+     grid with the plain K1, at phase 1's (1b's) bounds, and K1 at the
+     grids' shapes on seeded inputs, held and timed.
 Phases 2, 5, 7, 9, 10 and 11 each print a precision line: which nets run
 the bf16 policy and the process's TF32 and bf16-reduction flags.
 Prints one JSON line of kernel results (each kernel's time beside its plain
@@ -137,7 +152,7 @@ one PyTorch call that computes the same function where there is one; K1 and
 K2 and the trilinear kernels at the training chunk, the other shapes under
 `ms_by_shape`), then
 the last line {"ok": true, "device": {...}}. Any failed check raises
-(non-zero exit); checks of phases 1b and 4-11 raise after phase 11, so one
+(non-zero exit); checks of phases 1b and 4-12 raise after phase 12, so one
 run reports them all.
 """
 
@@ -1581,21 +1596,14 @@ def phase7_dg_serve(device, build_dir, failures: list):
     """Serve REQUESTS requests of the dg preset through the port's
     Inferencer; returns the two kernels' launches in the main path's run,
     the Inferencer, and the last request with its seconds."""
-    import conditioned_nerf_gan_torch.models.siren as siren_module
     from conditioned_nerf_gan_torch.infer import (
         Inferencer,
         build_models,
         load_metadata,
         save_checkpoint,
     )
-    from conditioned_nerf_gan_torch.ops.grid_sample import (
-        border_trilerp_reference,
-        trilinear_point_features,
-    )
-    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
-        film_siren_mlp,
-        film_siren_mlp_folded,
-    )
+    from conditioned_nerf_gan_torch.ops.grid_sample import trilinear_point_features
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import film_siren_mlp
 
     meta = load_metadata(DG_STEP, config="dg")
     build_dir.mkdir(parents=True, exist_ok=True)
@@ -1657,14 +1665,8 @@ def phase7_dg_serve(device, build_dir, failures: list):
 
     # the same first render with both plain versions in the kernels' places
     z, cams, rgb, depth = outputs[0]
-    siren_module.film_siren_mlp = film_siren_mlp_folded
-    siren_module.trilinear_point_features = (
-        lambda volume, coords, **_: border_trilerp_reference(volume, coords))
-    try:
+    with PlainVersions():
         rgb_plain, depth_plain = inf.render_batched(z, cams, z_batched=True)
-    finally:
-        siren_module.film_siren_mlp = film_siren_mlp
-        siren_module.trilinear_point_features = trilinear_point_features
     diff = np.abs(rgb - rgb_plain).max(axis=-1)
     over = float((diff > RENDER_TOL).mean())
     print(f"phase 7: render vs plain render: mean|pixel| {diff.mean():.3e} "
@@ -2074,13 +2076,14 @@ def print_stages(label: str, steps: list[dict], milestones: list[int], failures:
     return rows
 
 
-def phase10_trainer(device, build_dir, failures: list) -> dict:
+def phase10_trainer(device, work: Path, failures: list) -> dict:
     """The train CLI on the card: the port's fixture written on the card,
     the thesis preset through all four curriculum stages (compressed to
     THESIS_STAGE_STEPS steps a stage), a resume from its step-5 checkpoint,
     the dg preset across its first milestone, and one image grid through
-    the infer CLI from a trainer checkpoint. Returns the kernels' launches
-    of each run (the counters set to 0 just before it)."""
+    the infer CLI from a trainer checkpoint, all under `work` (phase 12
+    reads the runs). Returns the kernels' launches of each run (the
+    counters set to 0 just before it) and the thesis and dg run dirs."""
     from conditioned_nerf_gan_torch import train
     from conditioned_nerf_gan_torch.config import curriculum_to_json
     from conditioned_nerf_gan_torch.data.synthetic import make_synthetic_shapenet
@@ -2108,136 +2111,137 @@ def phase10_trainer(device, build_dir, failures: list) -> dict:
           "the whole process; the trainer itself leaves TF32 at PyTorch's default), "
           "matmul.allow_bf16_reduced_precision_reduction "
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        ds_root = make_synthetic_shapenet(tmp / "data", **TRAINER_FIXTURE, device=device)
-        print(f"phase 10: fixture {TRAINER_FIXTURE} written on the card in "
-              f"{time.perf_counter() - t0:.2f} s")
+    tmp = work / "phase10"
+    tmp.mkdir()
+    t0 = time.perf_counter()
+    ds_root = make_synthetic_shapenet(tmp / "data", **TRAINER_FIXTURE, device=device)
+    print(f"phase 10: fixture {TRAINER_FIXTURE} written on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
 
-        # the thesis preset through its four stages
-        sps = THESIS_STAGE_STEPS
-        run1 = tmp / "thesis"
-        run1.mkdir()
-        cur = compressed_curriculum(None, sps, ds_root)
-        curriculum_to_json(cur, run1 / "curriculum.json")
-        milestones = sorted(k for k in cur if isinstance(k, int))
-        flags = ["-p", str(sps), "-s", str(2 * sps), "-e", str(2 * sps), "--device", str(device)]
-        take_counts()
-        t0 = time.perf_counter()
-        with TrainerProbe(counters) as probe:
-            rc = train.main(["-o", str(run1), "--stop_step", str(THESIS_STOP), *flags])
-        thesis_counts = take_counts()
-        print(f"phase 10: thesis run, milestones {milestones}, stop_step {THESIS_STOP}: "
-              f"rc {rc} in {time.perf_counter() - t0:.2f} s; launches over the run (the "
-              f"steps, sample grids and val losses) K1 {thesis_counts[0]}, K2 "
-              f"{thesis_counts[1]}")
-        if rc != 0:
-            failures.append(f"phase 10: the thesis run returned {rc}")
-        stages = print_stages("phase 10 thesis", probe.steps, milestones, failures)
-        first = probe.trainers[0]
-        sizes = [s["img"] for s in stages]
-        if sizes != [32, 64, 128, 128]:
-            failures.append(f"phase 10: the thesis run's stages ran at {sizes}, not "
-                            "32, 64, 128, 128")
-        if [s["step"] for s in probe.steps] != list(range(THESIS_STOP + 1)):
-            failures.append(f"phase 10: the thesis run took steps "
-                            f"{[s['step'] for s in probe.steps]}")
-        saves = sorted(int(p.stem) for p in (run1 / "checkpoints").glob("*.pt"))
-        layout = {name: (run1 / name).exists() for name in (
-            "curriculum.json", "train_spec.txt", "logs", "evaluation",
-            "samples/trainview", "samples/valview", "samples/testview")}
-        grids = sorted(p.name for p in (run1 / "samples" / "valview").glob("*.png"))
-        val = first.histories["photometry_losses_val"]
-        print(f"phase 10: output dir {layout}; checkpoints {saves}; valview grids {grids}; "
-              f"val losses {val}; histories: {len(first.histories['photometry_losses'])} "
-              "photo, "
-              f"{len(first.histories['generator_losses'])} G, "
-              f"{len(first.histories['discriminator_losses'])} D")
-        if not all(layout.values()) or len(saves) < 2 or not grids or not val:
-            failures.append("phase 10: the thesis run's output dir lacks a part")
-        losses = [v for k in ("photometry_losses", "generator_losses", "discriminator_losses")
-                  for v in first.histories[k]]
-        if len(losses) != 3 * (THESIS_STOP + 1) or not np.all(np.isfinite(losses)):
-            failures.append("phase 10: the thesis run's losses are missing or not finite")
-        ref = {s["step"]: s for s in probe.steps}
-        ref_hist = {k: list(first.histories[k]) for k in (
-            "photometry_losses", "generator_losses", "discriminator_losses")}
-        del first, probe
-        torch.cuda.empty_cache()
+    # the thesis preset through its four stages
+    sps = THESIS_STAGE_STEPS
+    run1 = tmp / "thesis"
+    run1.mkdir()
+    cur = compressed_curriculum(None, sps, ds_root)
+    curriculum_to_json(cur, run1 / "curriculum.json")
+    milestones = sorted(k for k in cur if isinstance(k, int))
+    flags = ["-p", str(sps), "-s", str(2 * sps), "-e", str(2 * sps), "--device", str(device)]
+    take_counts()
+    t0 = time.perf_counter()
+    with TrainerProbe(counters) as probe:
+        rc = train.main(["-o", str(run1), "--stop_step", str(THESIS_STOP), *flags])
+    thesis_counts = take_counts()
+    print(f"phase 10: thesis run, milestones {milestones}, stop_step {THESIS_STOP}: "
+          f"rc {rc} in {time.perf_counter() - t0:.2f} s; launches over the run (the "
+          f"steps, sample grids and val losses) K1 {thesis_counts[0]}, K2 "
+          f"{thesis_counts[1]}")
+    if rc != 0:
+        failures.append(f"phase 10: the thesis run returned {rc}")
+    stages = print_stages("phase 10 thesis", probe.steps, milestones, failures)
+    first = probe.trainers[0]
+    sizes = [s["img"] for s in stages]
+    if sizes != [32, 64, 128, 128]:
+        failures.append(f"phase 10: the thesis run's stages ran at {sizes}, not "
+                        "32, 64, 128, 128")
+    if [s["step"] for s in probe.steps] != list(range(THESIS_STOP + 1)):
+        failures.append(f"phase 10: the thesis run took steps "
+                        f"{[s['step'] for s in probe.steps]}")
+    saves = sorted(int(p.stem) for p in (run1 / "checkpoints").glob("*.pt"))
+    layout = {name: (run1 / name).exists() for name in (
+        "curriculum.json", "train_spec.txt", "logs", "evaluation",
+        "samples/trainview", "samples/valview", "samples/testview")}
+    grids = sorted(p.name for p in (run1 / "samples" / "valview").glob("*.png"))
+    val = first.histories["photometry_losses_val"]
+    print(f"phase 10: output dir {layout}; checkpoints {saves}; valview grids {grids}; "
+          f"val losses {val}; histories: {len(first.histories['photometry_losses'])} "
+          "photo, "
+          f"{len(first.histories['generator_losses'])} G, "
+          f"{len(first.histories['discriminator_losses'])} D")
+    if not all(layout.values()) or len(saves) < 2 or not grids or not val:
+        failures.append("phase 10: the thesis run's output dir lacks a part")
+    losses = [v for k in ("photometry_losses", "generator_losses", "discriminator_losses")
+              for v in first.histories[k]]
+    if len(losses) != 3 * (THESIS_STOP + 1) or not np.all(np.isfinite(losses)):
+        failures.append("phase 10: the thesis run's losses are missing or not finite")
+    ref = {s["step"]: s for s in probe.steps}
+    ref_hist = {k: list(first.histories[k]) for k in (
+        "photometry_losses", "generator_losses", "discriminator_losses")}
+    del first, probe
+    torch.cuda.empty_cache()
 
-        # a resume from the step-5 checkpoint to step 8
-        run2 = tmp / "resumed"
-        take_counts()
-        with TrainerProbe(counters) as probe:
-            rc = train.main(["-o", str(run2), "-l", str(run1 / "checkpoints" / "5.pt"),
-                             "--stop_step", "8", *flags])
-        resume_counts = take_counts()
-        resumed = probe.trainers[0]
-        worst = 0.0
-        for s in probe.steps:
-            r = ref[s["step"]]
-            same = (s["position"], s["img"]) == (r["position"], r["img"])
-            print(f"phase 10 resume step {s['step']}: loader {s['position']} (uninterrupted "
-                  f"{r['position']}), image size {s['img']} ({r['img']})")
-            if not same:
-                failures.append(f"phase 10: the resumed run's step {s['step']} is not the "
-                                "uninterrupted run's")
-        for k, values in ref_hist.items():
-            got = resumed.histories[k]
-            for step in range(6, 9):
-                rel = abs(got[step] - values[step]) / max(abs(values[step]), 1e-30)
-                worst = max(worst, rel)
-                print(f"phase 10 resume {k}[{step}]: {got[step]:.7f} uninterrupted "
-                      f"{values[step]:.7f} (rel {rel:.3e})")
-        print(f"phase 10: resumed run rc {rc}, steps {[s['step'] for s in probe.steps]}; "
-              f"largest relative loss difference {worst:.3e} (bound {RESUME_LOSS_TOL})")
-        if (rc != 0 or [s["step"] for s in probe.steps] != [6, 7, 8]
-                or not worst <= RESUME_LOSS_TOL):
-            failures.append(f"phase 10: the resumed run does not replay the uninterrupted "
-                            f"one (rc {rc}, largest loss difference {worst:.3e})")
-        del resumed, probe
-        torch.cuda.empty_cache()
+    # a resume from the step-5 checkpoint to step 8
+    run2 = tmp / "resumed"
+    take_counts()
+    with TrainerProbe(counters) as probe:
+        rc = train.main(["-o", str(run2), "-l", str(run1 / "checkpoints" / "5.pt"),
+                         "--stop_step", "8", *flags])
+    resume_counts = take_counts()
+    resumed = probe.trainers[0]
+    worst = 0.0
+    for s in probe.steps:
+        r = ref[s["step"]]
+        same = (s["position"], s["img"]) == (r["position"], r["img"])
+        print(f"phase 10 resume step {s['step']}: loader {s['position']} (uninterrupted "
+              f"{r['position']}), image size {s['img']} ({r['img']})")
+        if not same:
+            failures.append(f"phase 10: the resumed run's step {s['step']} is not the "
+                            "uninterrupted run's")
+    for k, values in ref_hist.items():
+        got = resumed.histories[k]
+        for step in range(6, 9):
+            rel = abs(got[step] - values[step]) / max(abs(values[step]), 1e-30)
+            worst = max(worst, rel)
+            print(f"phase 10 resume {k}[{step}]: {got[step]:.7f} uninterrupted "
+                  f"{values[step]:.7f} (rel {rel:.3e})")
+    print(f"phase 10: resumed run rc {rc}, steps {[s['step'] for s in probe.steps]}; "
+          f"largest relative loss difference {worst:.3e} (bound {RESUME_LOSS_TOL})")
+    if (rc != 0 or [s["step"] for s in probe.steps] != [6, 7, 8]
+            or not worst <= RESUME_LOSS_TOL):
+        failures.append(f"phase 10: the resumed run does not replay the uninterrupted "
+                        f"one (rc {rc}, largest loss difference {worst:.3e})")
+    del resumed, probe
+    torch.cuda.empty_cache()
 
-        # the dg preset across its first milestone
-        run3 = tmp / "dg"
-        run3.mkdir()
-        cur = compressed_curriculum("dg", DG_STAGE_STEPS, ds_root)
-        curriculum_to_json(cur, run3 / "curriculum.json")
-        dg_milestones = sorted(k for k in cur if isinstance(k, int))
-        take_counts()
-        t0 = time.perf_counter()
-        with TrainerProbe(counters) as probe:
-            rc = train.main(["-o", str(run3), "--stop_step", str(2 * DG_STAGE_STEPS - 1),
-                             "-p", str(DG_STAGE_STEPS), "-s", "1000", "-e", "1000",
-                             "--device", str(device)])
-        dg_counts = take_counts()
-        print(f"phase 10: dg run, milestones {dg_milestones[:2]}, rc {rc} in "
-              f"{time.perf_counter() - t0:.2f} s; launches over the run K1 {dg_counts[0]}, "
-              f"K2 {dg_counts[1]}, trilinear {dg_counts[2]}, trilinear backward "
-              f"{dg_counts[3]}")
-        dg_stages = print_stages("phase 10 dg", probe.steps, dg_milestones, failures,
-                                 names=("K1", "K2", "trilinear", "trilinear backward"))
-        if rc != 0 or [s["img"] for s in dg_stages] != [32, 64]:
-            failures.append(f"phase 10: the dg run (rc {rc}) ran stages "
-                            f"{[s['img'] for s in dg_stages]}, not 32 and 64")
-        del probe
-        torch.cuda.empty_cache()
+    # the dg preset across its first milestone
+    run3 = tmp / "dg"
+    run3.mkdir()
+    cur = compressed_curriculum("dg", DG_STAGE_STEPS, ds_root)
+    curriculum_to_json(cur, run3 / "curriculum.json")
+    dg_milestones = sorted(k for k in cur if isinstance(k, int))
+    take_counts()
+    t0 = time.perf_counter()
+    with TrainerProbe(counters) as probe:
+        rc = train.main(["-o", str(run3), "--stop_step", str(2 * DG_STAGE_STEPS - 1),
+                         "-p", str(DG_STAGE_STEPS), "-s", "1000", "-e", "1000",
+                         "--device", str(device)])
+    dg_counts = take_counts()
+    print(f"phase 10: dg run, milestones {dg_milestones[:2]}, rc {rc} in "
+          f"{time.perf_counter() - t0:.2f} s; launches over the run K1 {dg_counts[0]}, "
+          f"K2 {dg_counts[1]}, trilinear {dg_counts[2]}, trilinear backward "
+          f"{dg_counts[3]}")
+    dg_stages = print_stages("phase 10 dg", probe.steps, dg_milestones, failures,
+                             names=("K1", "K2", "trilinear", "trilinear backward"))
+    if rc != 0 or [s["img"] for s in dg_stages] != [32, 64]:
+        failures.append(f"phase 10: the dg run (rc {rc}) ran stages "
+                        f"{[s['img'] for s in dg_stages]}, not 32 and 64")
+    del probe
+    torch.cuda.empty_cache()
 
-        # one image grid from a trainer checkpoint, through the infer CLI
-        take_counts()
-        rc = infer_main([str(run1 / "checkpoints" / f"{THESIS_STOP}.pt"), "--images",
-                         "--num_imgs", "4", "--device", str(device)])
-        infer_counts = take_counts()
-        out = sorted((run1 / "inference").glob("*.png"))
-        shape = read_png(out[0]).shape if out else None
-        print(f"phase 10: infer CLI on checkpoint {THESIS_STOP}: rc {rc}, wrote "
-              f"{[p.name for p in out]} of {shape}; K1 launches {infer_counts[0]}")
-        if rc != 0 or shape != (4 * 128, 4 * 128, 3) or not infer_counts[0]:
-            failures.append("phase 10: the infer CLI did not render the trainer checkpoint")
+    # one image grid from a trainer checkpoint, through the infer CLI
+    take_counts()
+    rc = infer_main([str(run1 / "checkpoints" / f"{THESIS_STOP}.pt"), "--images",
+                     "--num_imgs", "4", "--device", str(device)])
+    infer_counts = take_counts()
+    out = sorted((run1 / "inference").glob("*.png"))
+    shape = read_png(out[0]).shape if out else None
+    print(f"phase 10: infer CLI on checkpoint {THESIS_STOP}: rc {rc}, wrote "
+          f"{[p.name for p in out]} of {shape}; K1 launches {infer_counts[0]}")
+    if rc != 0 or shape != (4 * 128, 4 * 128, 3) or not infer_counts[0]:
+        failures.append("phase 10: the infer CLI did not render the trainer checkpoint")
     torch.cuda.empty_cache()
     return dict(trainer=thesis_counts, resumed=resume_counts, dg_trainer=dg_counts,
-                trainer_infer=infer_counts, stages=stages, dg_stages=dg_stages)
+                trainer_infer=infer_counts, stages=stages, dg_stages=dg_stages,
+                thesis_run=run1, dg_run=run3)
 
 
 EVAL_FIXTURE = dict(n_cars=6, n_views=12, img_size=128, n_points=65536,
@@ -2261,13 +2265,14 @@ EVAL_LPIPS_TOL = 1e-6
 EVAL_NS_TOL = 1e-5
 
 
-def phase11_eval(device, build_dir, failures: list) -> dict:
+def phase11_eval(device, work: Path, failures: list) -> dict:
     """Trainer.evaluate on the card: a thesis run at full width on a fixture
     of EVAL_FIXTURE written on the card, the curriculum compressed to one
     step a stage, eval_freq EVAL_STEP + 1: at step EVAL_STEP the Trainer
     saves, renders the `fid` subset (every view of the val cars) at 128^2
     with 96 + 96 samples through K1 and scores FID, oFID, LPIPS and PSNR.
-    Returns the K1 launches of the eval's render and its seconds."""
+    The run stays under `work` (phase 12 reads it). Returns the K1 launches
+    of the eval's render, its seconds and the run dir."""
     import os
 
     import conditioned_nerf_gan_torch.eval.fid_evaluation as fid_evaluation
@@ -2303,122 +2308,537 @@ def phase11_eval(device, build_dir, failures: list) -> dict:
         return wrapper
 
     env = os.environ.get("CNG_EVAL_IMAGES")
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        ds_root = make_synthetic_shapenet(tmp / "data", **EVAL_FIXTURE, device=device)
-        print(f"phase 11: fixture {EVAL_FIXTURE} written on the card in "
-              f"{time.perf_counter() - t0:.2f} s")
-        run = tmp / "thesis"
-        run.mkdir()
-        cur = compressed_curriculum(None, 1, ds_root)
-        curriculum_to_json(cur, run / "curriculum.json")
-        os.environ["CNG_EVAL_IMAGES"] = str(tmp / "eval_images")
-        for name in saved:
-            setattr(fid_evaluation, name, timed(name))
-        film_siren_mlp.launches = 0
-        try:
-            with TrainerProbe((film_siren_mlp,)) as probe:
-                t0 = time.perf_counter()
-                rc = train.main(["-o", str(run), "--stop_step", str(EVAL_STEP), "-p", "1000",
-                                 "-s", "1000", "-e", str(EVAL_STEP + 1),
-                                 "--device", str(device)])
-                run_s = time.perf_counter() - t0
-        finally:
-            for name, fn in saved.items():
-                setattr(fid_evaluation, name, fn)
-            if env is None:
-                os.environ.pop("CNG_EVAL_IMAGES", None)
-            else:
-                os.environ["CNG_EVAL_IMAGES"] = env
-        trainer = probe.trainers[0]
-        precision_line("phase 11", dict(PointNet=trainer.state.encoder,
-                                        D=trainer.state.discriminator))
-        meta = trainer._eval_metadata(img_size=128, num_steps=96)
-        render = RenderConfig.from_metadata(meta, perturb=False)
-        n_views = len(trainer.fidset)
-        batch = meta["fid"]["render_batch"]
-        design = (-(-n_views // batch) * max(render.ray_chunks, 1)
-                  * (2 if render.hierarchical_sample else 1))
-        print(f"phase 11: thesis run to step {EVAL_STEP} (rc {rc}) in {run_s:.2f} s; eval at "
-              f"step {EVAL_STEP}: the fid subset {n_views} views at "
-              f"{meta['fid']['target_size']}^2, {meta['num_steps']}+{meta['num_steps']} "
-              f"samples, render batch {batch}, ray_chunks {render.ray_chunks}; seconds: "
-              f"real-image setup {seconds.get('setup_evaluation', float('nan')):.3f}, render "
-              f"{seconds.get('output_images', float('nan')):.3f}, metrics "
-              f"{seconds.get('compute_metrics_from_dirs', float('nan')):.3f}; K1 launches in "
-              f"the render {launches.get('output_images')} (design {design})")
-        if rc != 0 or launches.get("output_images") != design:
-            failures.append(f"phase 11: the run returned {rc}; K1 launches in the eval "
-                            f"render {launches.get('output_images')}, design {design}")
-        lines = (run / "fid.txt").read_text().splitlines() if (run / "fid.txt").exists() else []
-        rows = [line.split() for line in lines if line.strip() and not line.startswith("#")]
-        print(f"phase 11: fid.txt: {lines}")
-        if (not lines or not lines[0].startswith(RANDOM_INIT_STAMP_PREFIX) or len(rows) != 1
-                or len(rows[0]) != 5 or rows[0][0] != str(EVAL_STEP)
-                or not all(np.isfinite(float(v)) for v in rows[0][1:])):
-            failures.append("phase 11: fid.txt lacks its stamp or one line of four finite "
-                            "metrics")
+    tmp = work / "phase11"
+    tmp.mkdir()
+    t0 = time.perf_counter()
+    ds_root = make_synthetic_shapenet(tmp / "data", **EVAL_FIXTURE, device=device)
+    print(f"phase 11: fixture {EVAL_FIXTURE} written on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    run = tmp / "thesis"
+    run.mkdir()
+    cur = compressed_curriculum(None, 1, ds_root)
+    curriculum_to_json(cur, run / "curriculum.json")
+    os.environ["CNG_EVAL_IMAGES"] = str(tmp / "eval_images")
+    for name in saved:
+        setattr(fid_evaluation, name, timed(name))
+    film_siren_mlp.launches = 0
+    try:
+        with TrainerProbe((film_siren_mlp,)) as probe:
+            t0 = time.perf_counter()
+            rc = train.main(["-o", str(run), "--stop_step", str(EVAL_STEP), "-p", "1000",
+                             "-s", "1000", "-e", str(EVAL_STEP + 1),
+                             "--device", str(device)])
+            run_s = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(fid_evaluation, name, fn)
+        if env is None:
+            os.environ.pop("CNG_EVAL_IMAGES", None)
+        else:
+            os.environ["CNG_EVAL_IMAGES"] = env
+    trainer = probe.trainers[0]
+    precision_line("phase 11", dict(PointNet=trainer.state.encoder,
+                                    D=trainer.state.discriminator))
+    meta = trainer._eval_metadata(img_size=128, num_steps=96)
+    render = RenderConfig.from_metadata(meta, perturb=False)
+    n_views = len(trainer.fidset)
+    batch = meta["fid"]["render_batch"]
+    design = (-(-n_views // batch) * max(render.ray_chunks, 1)
+              * (2 if render.hierarchical_sample else 1))
+    print(f"phase 11: thesis run to step {EVAL_STEP} (rc {rc}) in {run_s:.2f} s; eval at "
+          f"step {EVAL_STEP}: the fid subset {n_views} views at "
+          f"{meta['fid']['target_size']}^2, {meta['num_steps']}+{meta['num_steps']} "
+          f"samples, render batch {batch}, ray_chunks {render.ray_chunks}; seconds: "
+          f"real-image setup {seconds.get('setup_evaluation', float('nan')):.3f}, render "
+          f"{seconds.get('output_images', float('nan')):.3f}, metrics "
+          f"{seconds.get('compute_metrics_from_dirs', float('nan')):.3f}; K1 launches in "
+          f"the render {launches.get('output_images')} (design {design})")
+    if rc != 0 or launches.get("output_images") != design:
+        failures.append(f"phase 11: the run returned {rc}; K1 launches in the eval "
+                        f"render {launches.get('output_images')}, design {design}")
+    lines = (run / "fid.txt").read_text().splitlines() if (run / "fid.txt").exists() else []
+    rows = [line.split() for line in lines if line.strip() and not line.startswith("#")]
+    print(f"phase 11: fid.txt: {lines}")
+    if (not lines or not lines[0].startswith(RANDOM_INIT_STAMP_PREFIX) or len(rows) != 1
+            or len(rows[0]) != 5 or rows[0][0] != str(EVAL_STEP)
+            or not all(np.isfinite(float(v)) for v in rows[0][1:])):
+        failures.append("phase 11: fid.txt lacks its stamp or one line of four finite "
+                        "metrics")
 
-        # the card's nets against the same nets on the CPU, on the same PNGs
-        car = sorted((run / "evaluation").glob("*.png"))[0].name.rsplit("_", 1)[0]
-        real_dir = tmp / "eval_images" / ds_root.stem / f"{meta['fid']['subset']}_128"
-        names = [f"{car}_{i:04}.png" for i in range(EVAL_FIXTURE["n_views"])]
-        real = np.stack([read_rgb(real_dir / n) for n in names]).astype(np.float32) / 255
-        gen = np.stack([read_rgb(run / "evaluation" / n) for n in names]).astype(np.float32) / 255
-        card = _inception_features(np.concatenate([real, gen]), device)
-        k = EVAL_CPU_VIEWS
-        cpu = _inception_features(np.concatenate([real[:k], gen[:k]]), "cpu")
-        for dim, c, h in ((768, card[0], cpu[0]), (2048, card[1], cpu[1])):
-            c = np.concatenate([c[:k], c[len(names):len(names) + k]])
-            err = float(np.abs(c - h).max() / np.abs(h).max())
-            print(f"phase 11: Inception {dim} features of {2 * k} PNGs, card against CPU: "
-                  f"max|card - CPU| / max|CPU| {err:.3e} (bound {EVAL_FEATURE_TOL})")
-            if not err <= EVAL_FEATURE_TOL:
-                failures.append(f"phase 11: the card's Inception {dim} features differ from "
-                                "the CPU's")
-        l_card = compute_lpips_batch(real[:k], gen[:k], device)
-        l_cpu = compute_lpips_batch(real[:k], gen[:k], "cpu")
-        err = abs(l_card - l_cpu) / abs(l_cpu)
-        print(f"phase 11: LPIPS of {k} pairs, card {l_card:.7f} CPU {l_cpu:.7f} (rel "
-              f"{err:.3e}, bound {EVAL_LPIPS_TOL})")
-        if not err <= EVAL_LPIPS_TOL:
-            failures.append("phase 11: the card's LPIPS differs from the CPU's")
-        rng = np.random.default_rng(11)
-        pair = []
-        for _ in range(2):
-            q, _ = np.linalg.qr(rng.normal(size=(768, 768)))
-            mix = q * rng.uniform(0.5, 2.0, 768)
-            x = rng.normal(size=(4096, 768)) @ mix.T
-            pair.append(np.cov(x, rowvar=False))
-        prod = pair[0] @ pair[1]
-        exact = float(np.trace(linalg.sqrtm(prod)).real)
-        ns32 = float(newton_schulz_sqrt_trace(torch.as_tensor(prod, dtype=torch.float32,
-                                                              device=device)))
-        err = abs(ns32 - exact) / abs(exact)
-        print(f"phase 11: Newton-Schulz in fp32 on the card, a seeded 768^2 covariance pair: "
-              f"{ns32:.7f}, scipy sqrtm {exact:.7f} (rel {err:.3e}, bound {EVAL_NS_TOL})")
-        if not err <= EVAL_NS_TOL:
-            failures.append("phase 11: the card's Newton-Schulz trace differs from scipy's")
-        f_real = card[0][:len(names)].reshape(-1, 768).astype(np.float64)
-        f_gen = card[0][len(names):].reshape(-1, 768).astype(np.float64)
-        # random-weight features leave channels dead, so the covariances are
-        # singular: the pair with frechet_distance's own fallback offset, 1e-6
-        # on the diagonal
-        offset = np.eye(768) * 1e-6
-        prod = (np.cov(f_real, rowvar=False) + offset) @ (np.cov(f_gen, rowvar=False) + offset)
-        exact = float(np.trace(linalg.sqrtm(prod)).real)
-        readings = {str(dtype).replace("torch.", ""): float(newton_schulz_sqrt_trace(
-            torch.as_tensor(prod, dtype=dtype, device=device)))
-            for dtype in (torch.float32, torch.float64)}
-        print(f"phase 11: Newton-Schulz on {car}'s oFID covariance pair (768^2, singular) on "
-              f"the card, printed, not held (the exact=False oFID path is unsupported on "
-              f"random-weight features): {readings}, scipy sqrtm {exact:.10f} (fp64 rel "
-              f"{abs(readings['float64'] - exact) / abs(exact):.3e})")
-        fid_history = trainer.histories["fid_history"]
+    # the card's nets against the same nets on the CPU, on the same PNGs
+    car = sorted((run / "evaluation").glob("*.png"))[0].name.rsplit("_", 1)[0]
+    real_dir = tmp / "eval_images" / ds_root.stem / f"{meta['fid']['subset']}_128"
+    names = [f"{car}_{i:04}.png" for i in range(EVAL_FIXTURE["n_views"])]
+    real = np.stack([read_rgb(real_dir / n) for n in names]).astype(np.float32) / 255
+    gen = np.stack([read_rgb(run / "evaluation" / n) for n in names]).astype(np.float32) / 255
+    card = _inception_features(np.concatenate([real, gen]), device)
+    k = EVAL_CPU_VIEWS
+    cpu = _inception_features(np.concatenate([real[:k], gen[:k]]), "cpu")
+    for dim, c, h in ((768, card[0], cpu[0]), (2048, card[1], cpu[1])):
+        c = np.concatenate([c[:k], c[len(names):len(names) + k]])
+        err = float(np.abs(c - h).max() / np.abs(h).max())
+        print(f"phase 11: Inception {dim} features of {2 * k} PNGs, card against CPU: "
+              f"max|card - CPU| / max|CPU| {err:.3e} (bound {EVAL_FEATURE_TOL})")
+        if not err <= EVAL_FEATURE_TOL:
+            failures.append(f"phase 11: the card's Inception {dim} features differ from "
+                            "the CPU's")
+    l_card = compute_lpips_batch(real[:k], gen[:k], device)
+    l_cpu = compute_lpips_batch(real[:k], gen[:k], "cpu")
+    err = abs(l_card - l_cpu) / abs(l_cpu)
+    print(f"phase 11: LPIPS of {k} pairs, card {l_card:.7f} CPU {l_cpu:.7f} (rel "
+          f"{err:.3e}, bound {EVAL_LPIPS_TOL})")
+    if not err <= EVAL_LPIPS_TOL:
+        failures.append("phase 11: the card's LPIPS differs from the CPU's")
+    rng = np.random.default_rng(11)
+    pair = []
+    for _ in range(2):
+        q, _ = np.linalg.qr(rng.normal(size=(768, 768)))
+        mix = q * rng.uniform(0.5, 2.0, 768)
+        x = rng.normal(size=(4096, 768)) @ mix.T
+        pair.append(np.cov(x, rowvar=False))
+    prod = pair[0] @ pair[1]
+    exact = float(np.trace(linalg.sqrtm(prod)).real)
+    ns32 = float(newton_schulz_sqrt_trace(torch.as_tensor(prod, dtype=torch.float32,
+                                                          device=device)))
+    err = abs(ns32 - exact) / abs(exact)
+    print(f"phase 11: Newton-Schulz in fp32 on the card, a seeded 768^2 covariance pair: "
+          f"{ns32:.7f}, scipy sqrtm {exact:.7f} (rel {err:.3e}, bound {EVAL_NS_TOL})")
+    if not err <= EVAL_NS_TOL:
+        failures.append("phase 11: the card's Newton-Schulz trace differs from scipy's")
+    f_real = card[0][:len(names)].reshape(-1, 768).astype(np.float64)
+    f_gen = card[0][len(names):].reshape(-1, 768).astype(np.float64)
+    # random-weight features leave channels dead, so the covariances are
+    # singular: the pair with frechet_distance's own fallback offset, 1e-6
+    # on the diagonal
+    offset = np.eye(768) * 1e-6
+    prod = (np.cov(f_real, rowvar=False) + offset) @ (np.cov(f_gen, rowvar=False) + offset)
+    exact = float(np.trace(linalg.sqrtm(prod)).real)
+    readings = {str(dtype).replace("torch.", ""): float(newton_schulz_sqrt_trace(
+        torch.as_tensor(prod, dtype=dtype, device=device)))
+        for dtype in (torch.float32, torch.float64)}
+    print(f"phase 11: Newton-Schulz on {car}'s oFID covariance pair (768^2, singular) on "
+          f"the card, printed, not held (the exact=False oFID path is unsupported on "
+          f"random-weight features): {readings}, scipy sqrtm {exact:.10f} (fp64 rel "
+          f"{abs(readings['float64'] - exact) / abs(exact):.3e})")
+    fid_history = trainer.histories["fid_history"]
     del trainer, probe
     torch.cuda.empty_cache()
-    return dict(k1=launches.get("output_images", 0), seconds=seconds, fid_history=fid_history)
+    return dict(k1=launches.get("output_images", 0), seconds=seconds, fid_history=fid_history,
+                run=run)
+
+
+# Phase 12: the rest of inference through the infer CLI. The video at the
+# JAX CLI's defaults (240 frames at 24 fps, blocks of 16), the point clouds
+# from 20 views, the density voxel at 48^3 (the CLI's default) and 64^3
+INFER_FRAMES = 240
+INFER_FPS = 24
+INFER_PCL_VIEWS = 20
+INFER_VOXELS = (48, 64)
+INFER_INTERPOLATE_N = 8  # Inferencer.interpolate_latent_codes' default
+# the checkpoints of phase 10 render so little density that no depth lands
+# inside (ray_start, ray_end), the point clouds come out empty and the images
+# flat: the modes run on copies whose SIREN head has this much more sigma
+# bias (every other weight the same), so what they check has structure
+DENSE_SIGMA_BIAS = 3.0
+
+
+class InferencerProbe:
+    """Records the Inferencers the infer CLI builds, the seconds spent
+    building them and rendering (`generate_img`, and `sample_sigma_grid`
+    for the voxels; each call ends in a device sync), and the first
+    `render_batched` call's arguments and rgb."""
+
+    def __enter__(self):
+        from conditioned_nerf_gan_torch.infer import inference
+
+        self.module, self.cls = inference, inference.Inferencer
+        self.saved = {name: getattr(self.cls, name)
+                      for name in ("__init__", "generate_img", "render_batched")}
+        self.saved_grid = inference.sample_sigma_grid
+        self.built, self.seconds, self.first_render = [], {"build": 0.0, "render": 0.0}, None
+        probe = self
+
+        def timed(key, fn):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                probe.seconds[key] += time.perf_counter() - t0
+                return out
+            return wrapper
+
+        init, render_batched = timed("build", self.saved["__init__"]), self.saved["render_batched"]
+
+        def probed_init(inf, *args, **kwargs):
+            init(inf, *args, **kwargs)
+            probe.built.append(inf)
+
+        def probed_render_batched(inf, z, cams, **kwargs):
+            out = render_batched(inf, z, cams, **kwargs)
+            if probe.first_render is None:
+                probe.first_render = (z, np.asarray(cams), kwargs, out[0])
+            return out
+
+        self.cls.__init__ = probed_init
+        self.cls.generate_img = timed("render", self.saved["generate_img"])
+        self.cls.render_batched = probed_render_batched
+        self.module.sample_sigma_grid = timed("render", self.saved_grid)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+        self.module.sample_sigma_grid = self.saved_grid
+        return False
+
+
+class PlainVersions:
+    """The generator's SIREN with both plain versions in the kernels'
+    places: `film_siren_mlp_folded` for K1, `border_trilerp_reference` for
+    K5 (phase 7's swap)."""
+
+    def __enter__(self):
+        import conditioned_nerf_gan_torch.models.siren as siren_module
+        from conditioned_nerf_gan_torch.ops.grid_sample import border_trilerp_reference
+        from conditioned_nerf_gan_torch.ops.kernels.film_siren import film_siren_mlp_folded
+
+        self.module = siren_module
+        self.saved = siren_module.film_siren_mlp, siren_module.trilinear_point_features
+        siren_module.film_siren_mlp = film_siren_mlp_folded
+        siren_module.trilinear_point_features = (
+            lambda volume, coords, **_: border_trilerp_reference(volume, coords))
+        return self
+
+    def __exit__(self, *exc):
+        self.module.film_siren_mlp, self.module.trilinear_point_features = self.saved
+        return False
+
+
+def render_launches(meta: dict, views: int, block: int) -> int:
+    """K1 launches of `views` rendered `block` at a time: each block's
+    render makes coarse and fine SIREN calls per ray chunk."""
+    from conditioned_nerf_gan_torch.models.generator import RenderConfig
+
+    r = RenderConfig.from_metadata(meta)
+    return -(-views // block) * max(r.ray_chunks, 1) * (2 if r.hierarchical_sample else 1)
+
+
+def read_obj_points(path: Path) -> np.ndarray:
+    """(n, 6) xyz + rgb of an .obj of `v x y z r g b` lines."""
+    rows = [line.split()[1:] for line in path.read_text().splitlines()]
+    if not all(len(r) == 6 for r in rows):
+        raise ValueError(f"{path}: not `v x y z r g b` lines")
+    return np.asarray(rows, np.float64).reshape(-1, 6)
+
+
+def check_mrc(path: Path, n: int) -> str | None:
+    """None when the file reads back as an (n, n, n) finite mode-2 volume."""
+    import struct
+
+    from conditioned_nerf_gan_torch.infer.mrc import read_mrc
+
+    raw = path.read_bytes()
+    dims = struct.unpack_from("<3i", raw, 0)
+    mode = struct.unpack_from("<i", raw, 12)[0]
+    vol = read_mrc(path)
+    if dims != (n, n, n) or mode != 2 or raw[208:212] != b"MAP " or not np.isfinite(vol).all():
+        return f"dims {dims}, mode {mode}, stamp {raw[208:212]!r}, finite {np.isfinite(vol).all()}"
+    return None
+
+
+def dense_copy(run: Path, checkpoint: Path) -> Path:
+    """A sibling run of `run` (its curriculum, so its dataset) holding
+    `checkpoint` with DENSE_SIGMA_BIAS added to the SIREN head's sigma bias."""
+    import shutil
+
+    dense = run.parent / f"{run.name}_dense"
+    (dense / "checkpoints").mkdir(parents=True)
+    shutil.copy(run / "curriculum.json", dense / "curriculum.json")
+    ckpt = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    ckpt["params_G"]["siren.final_layer.bias"][3] += DENSE_SIGMA_BIAS
+    torch.save(ckpt, dense / "checkpoints" / checkpoint.name)
+    return dense
+
+
+def grid_against_plain(label: str, inf, n: int, bounds: tuple, failures: list) -> None:
+    """The n^3 sigma grid of valset[0]'s conditioning through the kernels
+    against the same grid with the plain versions in their places
+    (`PlainVersions`): the mean and 99.9th percentile of |kernel - plain|
+    at phase 1's (or 1b's) bounds, on the model's own weights."""
+    from conditioned_nerf_gan_torch.infer.extract_shapes import sample_sigma_grid
+
+    z = inf.encode(inf._cond_batch(inf.valset[0]))
+    grid = dict(cube_length=1.2, max_points=min(64 ** 3, n ** 3), device=inf.device)
+    kernel = sample_sigma_grid(inf.generator.eval_points, z, n, **grid)
+    with PlainVersions():
+        plain = sample_sigma_grid(inf.generator.eval_points, z, n, **grid)
+    err = np.abs(kernel - plain).ravel()
+    mean_tol, q999_tol = bounds
+    q999 = float(np.quantile(err, 0.999))
+    print(f"phase 12 [{label}] {n}^3 sigma grid (B 1, N {n ** 3}), kernels against plain: "
+          f"max|sigma| {np.abs(plain).max():.3e}, share of sigma > 0 {(plain > 0).mean():.4f}, "
+          f"max|kernel - plain| {err.max():.3e}, mean {err.mean():.3e} (bound {mean_tol}), "
+          f"p99.9 {q999:.3e} (bound {q999_tol})")
+    if not (np.isfinite(kernel).all() and err.mean() < mean_tol and q999 < q999_tol):
+        failures.append(f"phase 12: the {label} sigma grid through the kernels disagrees "
+                        "with its plain version")
+
+
+def block_against_plain(label: str, inf, first_render, failures: list) -> None:
+    """The first block of a mode's first `render_batched` call (16 frames
+    for the video) rendered again with the plain versions in the kernels'
+    places, held at phase 7's render bounds."""
+    z, cams, kwargs, rgb = first_render
+    chunk = kwargs.get("chunk", 8)
+    fov = kwargs.get("fov")
+    if kwargs.get("z_batched"):
+        z = tuple(p[:chunk] for p in z) if isinstance(z, (tuple, list)) else z[:chunk]
+    with PlainVersions():
+        rgb_plain, _ = inf.render_batched(
+            z, cams[:chunk], **{**kwargs, "fov": None if fov is None else fov[:chunk]})
+    diff = np.abs(rgb[:chunk] - rgb_plain).max(axis=-1)
+    over = float((diff > RENDER_TOL).mean())
+    print(f"phase 12 [{label}] first block ({chunk} views) against the plain render: "
+          f"pixel std {rgb_plain.std():.4f}, mean|pixel| {diff.mean():.3e} (bound "
+          f"{RENDER_MEAN_TOL}), share of pixels off by > {RENDER_TOL}: {over:.3e} (bound "
+          f"{RENDER_OVER_SHARE}), max|pixel| {diff.max():.3e}")
+    if diff.mean() > RENDER_MEAN_TOL or over > RENDER_OVER_SHARE:
+        failures.append(f"phase 12 [{label}]: the kernel render disagrees with the plain render")
+
+
+def trilinear_at_grids(device, failures: list) -> None:
+    """K5 at the voxel modes' shapes (B 1, N 48^3 and 64^3: the grid's
+    points scaled as the SIREN scales them) on a seeded 64^3 x 32 volume
+    against `border_trilerp_reference` at phase 6's bound; not counted."""
+    from conditioned_nerf_gan_torch.infer.extract_shapes import create_samples
+    from conditioned_nerf_gan_torch.models.siren import VOXEL_LENGTH
+    from conditioned_nerf_gan_torch.ops.grid_sample import (
+        border_trilerp_reference,
+        trilinear_point_features,
+    )
+
+    rng = np.random.default_rng(3)
+    volume = torch.from_numpy(rng.normal(0, 1, (1, VOXEL_RES, VOXEL_RES, VOXEL_RES, 32))
+                              .astype(np.float32)).to(device)
+    vol_max = volume.abs().max().item()
+    for n in INFER_VOXELS:
+        coords = torch.from_numpy(create_samples(n, cube_length=1.2)[0]).to(device) / (
+            VOXEL_LENGTH / 2.0)
+        with torch.no_grad():
+            out = trilinear_point_features(volume, coords, align_corners=False,
+                                           padding_mode="border")
+            plain = border_trilerp_reference(volume, coords)
+            err = (out - plain).abs().max().item()
+            ms = cuda_ms(lambda: trilinear_point_features(volume, coords), 20)
+            plain_ms = cuda_ms(lambda: border_trilerp_reference(volume, coords), 5)
+        print(f"phase 12 [trilinear at the {n}^3 grid] B=1 N={n ** 3} volume {VOXEL_RES}^3 x "
+              f"32: max|kernel - plain| {err:.3e} (bound {TRILERP_TOL} x max|volume| "
+              f"{vol_max:.3f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (events)")
+        if not (torch.isfinite(out).all() and err <= TRILERP_TOL * vol_max):
+            failures.append(f"phase 12: K5 at the {n}^3 grid disagrees with its plain version")
+
+
+def phase12_infer(device, trainer: dict, evaluation: dict, failures: list) -> dict:
+    """The rest of inference on the card, through the infer CLI's `main`
+    with --device cuda: on `dense_copy` of phase 10's thesis checkpoint
+    (so the renders, clouds and grids hold density) the fixed-camera grid,
+    the orbit video, the colored point clouds (random cameras and the
+    dataset's views, masked by the GT depth), the density voxel at 48^3
+    and 64^3 and the latent interpolation between two fixture cars; on
+    phase 11's (12 views a car, oFID's minimum 10) the metrics; on the
+    dense copy of phase 10's dg checkpoint the voxel and the video (K1 at
+    Din 32 behind the trilinear kernel). Each mode's seconds (split into
+    the Inferencer's build, the render and the rest: host work and file
+    writes), launches against the design count and output are printed and
+    its output read back; both videos' first block is held against the
+    plain render, the thesis 64^3 grid and the dg 48^3 and 64^3 grids
+    against their plain versions, K1 and K5 at the grids' shapes against
+    theirs, K1 timed there. Returns each path's launches and the timed
+    shapes."""
+    from conditioned_nerf_gan_torch.config import curriculum_from_json
+    from conditioned_nerf_gan_torch.eval.weights import RANDOM_INIT_STAMP_PREFIX
+    from conditioned_nerf_gan_torch.infer import Inferencer
+    from conditioned_nerf_gan_torch.infer.__main__ import main as infer_main
+    from conditioned_nerf_gan_torch.ops.grid_sample import trilinear_point_features
+    from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
+        film_siren_mlp,
+        film_siren_mlp_folded,
+    )
+    from conditioned_nerf_gan_torch.utils.png import read_png
+    from conditioned_nerf_gan_torch.utils.video import read_avi
+
+    counters = (film_siren_mlp, trilinear_point_features)
+    t_phase = time.perf_counter()
+
+    def last_checkpoint(run: Path) -> Path:
+        return max((run / "checkpoints").glob("*.pt"), key=lambda q: int(q.stem))
+
+    thesis_run, dg_run = (dense_copy(trainer[key], last_checkpoint(trainer[key]))
+                          for key in ("thesis_run", "dg_run"))
+    eval_run = evaluation["run"]
+
+    def newest(run: Path, pattern: str, since: float) -> Path | None:
+        found = [q for q in run.glob(pattern) if q.stat().st_mtime >= since]
+        return max(found, key=lambda q: q.stat().st_mtime) if found else None
+
+    totals = {"K1": 0, "K1 dg": 0, "trilinear dg": 0}
+    seconds_by_mode = {}
+
+    def drive(label: str, run: Path, flags: list, design, check, dg: bool = False,
+              hold_first_block: bool = False):
+        ckpt = last_checkpoint(run)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        since = time.time() - 1
+        t0 = time.perf_counter()
+        with InferencerProbe() as probe:
+            rc = infer_main([str(ckpt), *flags, "--device", str(device)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1, tri = (c.launches for c in counters)
+        inf = probe.built[0] if probe.built else None
+        want = design(inf) if inf is not None else None
+        out, problem = check(run, since) if rc == 0 else (None, f"rc {rc}")
+        size = out.stat().st_size if out is not None and out.exists() else None
+        build, render = probe.seconds["build"], probe.seconds["render"]
+        print(f"phase 12 [{label}] checkpoint {ckpt.name}: rc {rc} in {seconds:.3f} s (build "
+              f"{build:.3f}, render {render:.3f}, rest {seconds - build - render:.3f}); "
+              f"launches K1 {k1}" + (f", trilinear {tri}" if dg else "")
+              + f" (design {want}{', both' if dg else ''}); wrote "
+              f"{out.relative_to(run) if out is not None else None} ({size} bytes)"
+              + (f"; {problem}" if problem else ""))
+        totals["K1 dg" if dg else "K1"] += k1
+        if dg:
+            totals["trilinear dg"] += tri
+        if rc != 0 or problem or k1 != want or (dg and tri != want):
+            failures.append(f"phase 12 [{label}]: rc {rc}, K1 {k1}, trilinear {tri}, design "
+                            f"{want}; {problem}")
+        seconds_by_mode[label] = (seconds, build, render)
+        if hold_first_block and inf is not None and probe.first_render is not None:
+            block_against_plain(label, inf, probe.first_render, failures)
+        del inf, probe
+
+    def png_check(pattern: str, shape_of):
+        def check(run, since):
+            out = newest(run, pattern, since)
+            if out is None:
+                return None, f"no {pattern}"
+            shape = read_png(out).shape
+            return out, None if shape == shape_of else f"shape {shape}, want {shape_of}"
+        return check
+
+    def video_check(run, since):
+        out = newest(run, "inference/video/*.avi", since)
+        if out is None:
+            return None, "no .avi"
+        frames, fps = read_avi(out)
+        want = (INFER_FRAMES, IMAGE_SIZE, IMAGE_SIZE, 3)
+        return out, None if (frames.shape, fps) == (want, INFER_FPS) else \
+            f"{frames.shape} at {fps} fps, want {want} at {INFER_FPS}"
+
+    def obj_check(pattern):
+        def check(run, since):
+            out = newest(run, pattern, since)
+            if out is None:
+                return None, f"no {pattern}"
+            pts = read_obj_points(out)
+            print(f"phase 12: {out.name}: {len(pts)} points, xyz in "
+                  f"[{pts[:, :3].min() if len(pts) else 0:.3f}, "
+                  f"{pts[:, :3].max() if len(pts) else 0:.3f}]")
+            return out, None if len(pts) and np.isfinite(pts).all() else \
+                f"{len(pts)} points, not all finite or none"
+        return check
+
+    def mrc_check(n):
+        def check(run, since):
+            out = newest(run, "inference/*.mrc", since)
+            return out, check_mrc(out, n) if out is not None else "no .mrc"
+        return check
+
+    def metrics_check(run, since):
+        out = run / "fid_inference.txt"
+        lines = out.read_text().splitlines() if out.exists() else []
+        fields = [line.split() for line in lines if line.strip() and not line.startswith("#")]
+        print(f"phase 12: fid_inference.txt: {lines}")
+        ok = (lines and lines[0].startswith(RANDOM_INIT_STAMP_PREFIX) and fields
+              and len(fields[-1]) == 7 and all(np.isfinite(float(v)) for v in fields[-1]))
+        return out, None if ok else "fid_inference.txt lacks its stamp or a 7-field line"
+
+    views = TRAINER_FIXTURE["n_views"]
+    n_imgs = 4
+    drive("images, fixed cameras", thesis_run,
+          ["--images", "--cam_fixed", "--num_imgs", str(n_imgs)],
+          lambda inf: render_launches(inf.curriculum, min(n_imgs, len(inf.valset)), 8),
+          png_check("inference/*_fixed_*.png", (4 * IMAGE_SIZE, n_imgs * IMAGE_SIZE, 3)))
+    video = ["--video", "--num_frames", str(INFER_FRAMES), "--fps", str(INFER_FPS)]
+    drive("video", thesis_run, video,
+          lambda inf: render_launches(inf.curriculum, INFER_FRAMES, 16), video_check,
+          hold_first_block=True)
+    drive("pcl", thesis_run, ["--pcl", "--pcl_views", str(INFER_PCL_VIEWS)],
+          lambda inf: render_launches(inf.curriculum, INFER_PCL_VIEWS, 8),
+          obj_check("inference/*_car*[0-9]_[0-9]*.obj"))
+    drive("pcl masked", thesis_run, ["--pcl_masked", "--pcl_views", str(INFER_PCL_VIEWS)],
+          lambda inf: render_launches(inf.curriculum, min(INFER_PCL_VIEWS, views), 8),
+          obj_check("inference/*_masked_*.obj"))
+    for n in INFER_VOXELS:
+        drive(f"voxel {n}^3", thesis_run, ["--voxel", "--voxel_resolution", str(n)],
+              lambda inf, n=n: -(-n ** 3 // min(64 ** 3, n ** 3)), mrc_check(n))
+    ds_path = Path(curriculum_from_json(thesis_run / "curriculum.json")["dataset"]["path"])
+    src, tgt = sorted(q.name for q in ds_path.iterdir() if (q / "cameras.npz").exists())[:2]
+    drive("interpolate", thesis_run,
+          ["--interpolate", "--interpolate_src", src, "--interpolate_tgt", tgt],
+          lambda inf: render_launches(inf.curriculum, INFER_INTERPOLATE_N + 1, 8),
+          png_check(f"inference/{src}_to_{tgt}_fz.png",
+                    (IMAGE_SIZE, (INFER_INTERPOLATE_N + 1) * IMAGE_SIZE, 3)))
+
+    def metrics_design(inf):  # eval.output_images' render batch
+        block = (inf.curriculum["fid"].get("render_batch")
+                 or (2 if inf.curriculum["num_steps"] > 48 else 8))
+        return render_launches(inf.curriculum, len(inf.fidset), block)
+
+    drive("metrics", eval_run, ["--metrics"], metrics_design, metrics_check)
+    drive("dg voxel 48^3", dg_run, ["--voxel"], lambda inf: -(-48 ** 3 // 48 ** 3),
+          mrc_check(48), dg=True)
+    drive("dg video", dg_run, video,
+          lambda inf: render_launches(inf.curriculum, INFER_FRAMES, 16), video_check, dg=True,
+          hold_first_block=True)
+    infer_s = time.perf_counter() - t_phase
+
+    # the grids through the kernels against their plain versions, on the
+    # models' own weights; K1 and K5 at the grids' shapes against theirs,
+    # on seeded inputs (K1 timed); none of these counts
+    timed = {}
+    with torch.no_grad():
+        for label, run, sizes, bounds in (
+                ("thesis", thesis_run, (64,), (KERNEL_MEAN_TOL, KERNEL_Q999_TOL)),
+                ("dg", dg_run, INFER_VOXELS, (DIN32_MEAN_TOL, DIN32_Q999_TOL))):
+            inf = Inferencer(last_checkpoint(run), device=device)
+            for n in sizes:
+                grid_against_plain(label, inf, n, bounds, failures)
+            del inf
+            torch.cuda.empty_cache()
+        trilinear_at_grids(device, failures)
+        for label, n, din, make in (("voxel grid 64^3", 64, 3, kernel_inputs),
+                                    ("dg voxel grid 48^3", 48, 32, voxel_kernel_inputs)):
+            inp = make(1, n ** 3, seed=2, device=device)
+            err, failure = check_kernel(label, inp, "phase 12", (
+                (KERNEL_LOW_TOL, KERNEL_MEAN_TOL, KERNEL_Q999_TOL, KERNEL_VS_PLAIN) if din == 3
+                else (DIN32_LOW_TOL, DIN32_MEAN_TOL, DIN32_Q999_TOL, DIN32_VS_PLAIN)))
+            if failure:
+                failures.append(failure)
+            timed[label] = timed_row("phase 12", label, 1, n ** 3,
+                                     lambda: film_siren_mlp(*inp.values()),
+                                     lambda: film_siren_mlp_folded(*inp.values()),
+                                     *film_bound(1, n ** 3, 4 if din == 3 else 8, din), 20)
+            del inp
+    print("phase 12: seconds by mode (build / render / rest): "
+          + ", ".join(f"{mode} {t:.3f} ({b:.3f} / {r:.3f} / {t - b - r:.3f})"
+                      for mode, (t, b, r) in seconds_by_mode.items())
+          + f"; the modes {infer_s:.2f} s, the phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(k1=totals["K1"], dg_k1=totals["K1 dg"], dg_trilinear=totals["trilinear dg"],
+                timed=timed)
 
 
 def main() -> int:
@@ -2480,8 +2900,11 @@ def main() -> int:
     study_rows, study = phase8_study(device, failures,
                                      fwd["ms_by_shape"]["thesis render"]["ms"])
     dg = phase9_dg_train(device, failures)
-    trainer = phase10_trainer(device, Path(build.BUILD_DIR), failures)
-    evaluation = phase11_eval(device, Path(build.BUILD_DIR), failures)
+    # phase 12 reads the runs of phases 10 and 11
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
+        trainer = phase10_trainer(device, Path(work), failures)
+        evaluation = phase11_eval(device, Path(work), failures)
+        inference = phase12_infer(device, trainer, evaluation, failures)
     if failures:
         raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
     thesis, dg_run = trainer["trainer"], trainer["dg_trainer"]
@@ -2489,10 +2912,13 @@ def main() -> int:
                                "film_study": study["k1"], "trainer": thesis[0],
                                "trainer_resumed": trainer["resumed"][0],
                                "trainer_infer": trainer["trainer_infer"][0],
-                               "trainer_eval": evaluation["k1"]}
+                               "trainer_eval": evaluation["k1"],
+                               "infer_modes": inference["k1"]}
+    fwd["ms_by_shape"]["voxel grid 64^3"] = inference["timed"]["voxel grid 64^3"]
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     fwd32["launches_by_path"] = {"dg_serve": dg_k1, "dg_train": dg["k1"],
-                                 "dg_trainer": dg_run[0]}
+                                 "dg_trainer": dg_run[0], "dg_infer_modes": inference["dg_k1"]}
+    fwd32["ms_by_shape"]["dg voxel grid 48^3"] = inference["timed"]["dg voxel grid 48^3"]
     fwd32["launches"] = sum(fwd32["launches_by_path"].values())
     bwd["launches_by_path"] = {"train": train_bwd, "film_study": study["k2"],
                                "dg_train": dg["k2"], "trainer": thesis[1],
@@ -2502,7 +2928,7 @@ def main() -> int:
     bwd["ms_by_shape"].update(bwd32["timed"])
     bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd32["worst"])
     tri["launches_by_path"] = {"dg_serve": dg_tri, "dg_train": dg["trilinear"],
-                               "dg_trainer": dg_run[2]}
+                               "dg_trainer": dg_run[2], "dg_infer_modes": inference["dg_trilinear"]}
     tri["launches"] = sum(tri["launches_by_path"].values())
     tri_bwd["launches_by_path"] = {"dg_train": dg["trilinear_bwd"], "dg_trainer": dg_run[3]}
     tri_bwd["launches"] = sum(tri_bwd["launches_by_path"].values())

@@ -2,8 +2,11 @@
 
 Takes a port checkpoint `{run}/checkpoints/{step}.pt` (see
 `conditioned_nerf_gan_torch.bridge.convert_checkpoint` for JAX checkpoints)
-and keeps the flag names of the JAX CLI (inference.py). Flags whose
-features are not ported yet exit non-zero naming their ROADMAP item.
+and keeps the flag names and the order of the JAX CLI (inference.py):
+image grids, the orbit video (an uncompressed .avi where the JAX CLI writes
+.mp4), colored point clouds, the density voxel, metrics and latent
+interpolation. `--shard_rays` (multi-GPU, ROADMAP A14) and `--platform`
+(a JAX backend; the port takes `--device`) exit 2 naming why.
 """
 
 from __future__ import annotations
@@ -17,12 +20,6 @@ import numpy as np
 
 # flag -> why it is refused
 _NOT_PORTED = {
-    "video": "orbit videos are ROADMAP A10",
-    "pcl": "colored point-cloud export is ROADMAP A10",
-    "pcl_masked": "masked colored point-cloud export is ROADMAP A10",
-    "voxel": "density-voxel export is ROADMAP A10",
-    "metrics": "the FID/LPIPS/PSNR metrics are ROADMAP A9/A10",
-    "interpolate": "latent interpolation is ROADMAP A10",
     "shard_rays": "multi-GPU ray sharding is ROADMAP A14",
     "platform": "--platform picks a JAX backend; the port takes --device",
 }
@@ -76,6 +73,9 @@ def main(argv=None) -> int:
     if refused:
         print("not ported yet:\n  " + "\n  ".join(refused), file=sys.stderr)
         return 2
+    if opt.interpolate and not (opt.interpolate_src and opt.interpolate_tgt):
+        print("--interpolate requires --interpolate_src and --interpolate_tgt", file=sys.stderr)
+        return 2
     if opt.native_loader:
         os.environ["CNG_NATIVE_LOADER"] = "1"
 
@@ -97,11 +97,25 @@ def main(argv=None) -> int:
             opt.path, sampling_mode=opt.sampling_mode,
             input_voxel_resolution=opt.input_voxel_resolution, z_up=opt.z_up,
             num_imgs=opt.num_imgs, image_size=opt.image_size,
-            ray_step_multiplier=opt.ray_step_multiplier, seed=seed,
-            device=opt.device,
+            ray_step_multiplier=opt.ray_step_multiplier, load_dataset=not opt.interpolate,
+            seed=seed, device=opt.device,
         )
         if opt.images:
             inferencer.render_imgs(opt.cam_fixed)
+        if opt.video:
+            for idx in range(min(opt.num_imgs, 1)):
+                inferencer.render_video(idx, opt.num_frames, opt.fps)
+        if opt.pcl:
+            inferencer.render_pcl(0, opt.pcl_views)
+        if opt.pcl_masked:
+            inferencer.render_pcl_masked(0, opt.pcl_views)
+        if opt.voxel:
+            inferencer.save_voxel(0, opt.cube_size, opt.voxel_resolution)
+        if opt.metrics:
+            inferencer.compute_metrics()
+        if opt.interpolate:
+            inferencer.interpolate_latent_codes(opt.interpolate_src, opt.interpolate_tgt,
+                                                inferencer.run_dir / "inference")
     return 0
 
 

@@ -1,15 +1,21 @@
 """Inference runtime (port of conditioned_nerf_gan_tpu/infer/inference.py).
 
-Ported: curriculum loading with the eval overrides, model building and port
+Curriculum loading with the eval overrides, model building and port
 checkpoints (`{run}/checkpoints/{step}.pt`, written by `save_checkpoint` or
 by `bridge.convert_checkpoint`), `encode` (PointNet for point-cloud runs,
-the U-Net for voxel runs), `generate_img`, `render_batched`, the image grids
-(`render_imgs`) and `_load_car_cond`. Video, colored pcl, voxel export,
-metrics and latent interpolation are ROADMAP A10.
+the U-Net for voxel runs), `generate_img`, `render_batched`, and every
+output of the JAX Inferencer: image grids (`render_imgs`, with the
+Rodrigues camera perturbation), orbit videos (`render_video`), colored
+point clouds (`render_pcl`, `render_pcl_masked`), density voxels
+(`save_voxel`), metrics (`compute_metrics`) and latent interpolation
+(`interpolate_latent_codes`). Each renders through the generator, so on the
+card through the kernels. Videos are uncompressed AVI (`utils/video.py`)
+where the JAX package writes mp4v through cv2: the port uses no cv2.
 """
 
 from __future__ import annotations
 
+import math
 import random
 from datetime import datetime
 from pathlib import Path
@@ -27,6 +33,11 @@ from ..models.generator import ImplicitGenerator3d, RenderConfig
 from ..models.pointnet import ResnetPointnet, encode_pcl
 from ..models.unet3d import make_unet
 from ..ops.rays import create_cam2world_matrix, sample_camera_positions
+from ..utils.image import save_image_grid
+from ..utils.rotation import perturb_extrinsics
+from ..utils.video import write_avi
+from .extract_shapes import sample_sigma_grid
+from .mrc import write_mrc
 
 
 def load_metadata(step: int, run_dir: str | Path | None = None,
@@ -139,6 +150,12 @@ class Inferencer:
                 voxel_resolution=self.curriculum["voxel_resolution"],
                 load_depth=True, seed=seed,
             )
+            self.fidset = ShapeNetDataset(
+                ds["path"], self.curriculum["fid"]["target_size"],
+                self.curriculum["fid"]["subset"], self.curriculum,
+                load_voxel=ds["load_voxel"], load_pcl=ds["load_pcl"],
+                dataset_mode="test", load_img=False, load_depth=False, shuffle=False,
+            )
 
     def _get_curriculum(self, input_voxel_resolution: int) -> dict:
         meta = load_metadata(self.step, self.run_dir)
@@ -162,19 +179,22 @@ class Inferencer:
         self.encoder.to(self.device).eval()
 
     # ------------------------------------------------------------------
+    def _tensor(self, x) -> torch.Tensor:
+        """An array or a tensor on any device as fp32 on this device."""
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
     @torch.no_grad()
     def encode(self, sample_batch: dict):
         """{"pcl": (B, P, 6)} -> z (B, z_dim); or {"voxel": (B, D, H, W, C)}
         NDHWC grids, as ShapeNetDataset yields them -> the U-Net's
-        (feature volume (B, D, H, W, C) contiguous, global (B, z_dim))."""
+        (feature volume (B, D, H, W, C) contiguous, global (B, z_dim)).
+        Arrays or tensors."""
         if self.curriculum["dataset"]["load_pcl"]:
-            pcl = torch.as_tensor(np.asarray(sample_batch["pcl"]), dtype=torch.float32,
-                                  device=self.device)
-            z, _ = encode_pcl(self.encoder, pcl)
+            z, _ = encode_pcl(self.encoder, self._tensor(sample_batch["pcl"]))
             return z
-        voxel = torch.as_tensor(np.asarray(sample_batch["voxel"]), dtype=torch.float32,
-                                device=self.device)
-        return self.encoder(voxel)
+        return self.encoder(self._tensor(sample_batch["voxel"]))
+
+    encode_batch = encode  # the eval's name (eval.fid_evaluation.output_images)
 
     @torch.no_grad()
     def generate_img(self, z, cam2world, img_size=None, num_steps=None, fov=None):
@@ -183,11 +203,9 @@ class Inferencer:
         meta["num_steps"] = num_steps or meta["num_steps"]
         cfg = RenderConfig.from_metadata(meta, perturb=False)
         fov = meta["fov"] if fov is None else fov
-        cams = torch.as_tensor(np.asarray(cam2world), dtype=torch.float32,
-                               device=self.device)
+        cams = self._tensor(cam2world)
         if not np.isscalar(fov):
-            fov = torch.as_tensor(np.asarray(fov), dtype=torch.float32,
-                                  device=self.device)
+            fov = self._tensor(fov)
         if isinstance(z, (tuple, list)):
             z = tuple(torch.as_tensor(part, device=self.device) for part in z)
         else:
@@ -224,6 +242,18 @@ class Inferencer:
         out.mkdir(parents=True, exist_ok=True)
         return out
 
+    @staticmethod
+    def _cond_batch(sample: dict) -> dict:
+        return {k: np.asarray(v)[None] for k, v in sample.items() if k in ("pcl", "voxel")}
+
+    def _car_cond(self, car) -> tuple[str, dict]:
+        """A valset index or a dataset car's name -> (car name, its
+        conditioning as a batch of one)."""
+        if isinstance(car, int):
+            sample = self.valset[car]
+            return Path(sample["img_path"]).parent.parent.stem, self._cond_batch(sample)
+        return car, self._load_car_cond(car)
+
     # ------------------------------------------------------------------
     def render_imgs(self, is_fixed: bool) -> Path:
         if is_fixed:
@@ -232,9 +262,7 @@ class Inferencer:
         print("Inference with uniform spherical camera")
         return self._inference_camera(fixed=False)
 
-    def _inference_camera(self, fixed: bool) -> Path:
-        from ..utils.image import save_image_grid
-
+    def _inference_camera(self, fixed: bool, cam_noise: float = 0.0) -> Path:
         n = min(self.num_imgs, len(self.valset))
         indices = (random.sample(range(len(self.valset)), n) if fixed
                    else list(range(n)))
@@ -254,7 +282,10 @@ class Inferencer:
             gt_rows.append(sample["img"] * 0.5 + 0.5)
             depth = sample.get("depth", np.zeros(sample["img"].shape[:2], np.float32))
             gt_depth_rows.append(np.repeat((depth / ray_end)[..., None], 3, -1))
-            cam_rows.append(np.asarray(sample["cam2world"] if fixed else cams[row]))
+            cam = sample["cam2world"] if fixed else cams[row]
+            if fixed and cam_noise > 0:
+                cam = perturb_extrinsics(cam[None], cam_noise, self.rng)[0]
+            cam_rows.append(np.asarray(cam))
         z = self.encode({k: np.stack([np.asarray(s[k]) for s in samples])
                          for k in ("pcl", "voxel") if k in samples[0]})
         rgb_all, d_all = self.render_batched(z, np.stack(cam_rows), z_batched=True)
@@ -283,3 +314,235 @@ class Inferencer:
         name = {64: "voxel.npz", 32: "voxel_32.npz", 128: "voxel_128.npz"}[
             self.curriculum["voxel_resolution"]]
         return {"voxel": voxel_to_ndhwc(np.load(root / name)["voxel"])[None]}
+
+    # ------------------------------------------------------------------
+    # orbit video (reference inference.py:387-499)
+    # ------------------------------------------------------------------
+    def render_video(self, car, num_frames: int = 240, fps: int = 24) -> Path:
+        """The scripted theta/phi/r orbit with a per-frame fov sweep 60 ->
+        30, rendered in blocks of 16 frames, written as an uncompressed AVI
+        (`inference/video/{run}_{step}_{car}_{stamp}.avi`)."""
+        assert num_frames > fps * 4 and num_frames % 4 == 0
+        car_name, cond = self._car_cond(car)
+        print("Rendering video for car", car_name)
+        z = self.encode(cond)
+
+        theta0 = np.linspace(1e-5, np.pi / 2 - 1e-5, num_frames // 2)
+        phi0 = np.linspace(0, np.pi * 2, num_frames // 2)
+        theta1 = np.linspace(np.pi / 2 - 1e-5, 1e-5, num_frames // 4)
+        phi11 = np.linspace(np.pi * 2, np.pi * 5 / 4, fps)
+        phi12 = np.full(num_frames // 4 - fps, np.pi * 5 / 4)
+        theta21 = np.linspace(1e-5, np.pi / 4 - 1e-5, fps)
+        theta22 = np.full(num_frames // 4 - fps, np.pi / 4 - 1e-5)
+        phi2 = np.linspace(np.pi * 5 / 4, 0, num_frames // 4)
+        theta = np.concatenate([theta0, theta1, theta21, theta22])
+        phi = np.concatenate([phi0, phi11, phi12, phi2])
+        r = np.linspace(self.curriculum["cam_r_start"], self.curriculum["cam_r_end"],
+                        num_frames)
+        fovs = np.linspace(60, 30, num_frames)
+
+        origin = np.zeros((num_frames, 3), np.float32)
+        origin[:, 0] = r * np.sin(theta) * np.cos(phi)
+        if self.up_direction == "z":
+            origin[:, 1] = r * np.sin(theta) * np.sin(phi)
+            origin[:, 2] = r * np.cos(theta)
+        else:
+            origin[:, 2] = r * np.sin(theta) * np.sin(phi)
+            origin[:, 1] = r * np.cos(theta)
+        cams = create_cam2world_matrix(torch.from_numpy(origin), self.up_direction).numpy()
+
+        stamp = datetime.now().strftime("%d--%H:%M:%S")
+        out = (self._inference_dir() / "video" /
+               f"{self.run_dir.stem}_{self.step}_{car_name}_{stamp}.avi")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        rgb_all, _ = self.render_batched(z, cams, fov=fovs.astype(np.float32), chunk=16)
+        write_avi(out, np.stack([(np.clip(frame, 0, 1)[..., ::-1] * 255).astype(np.uint8)
+                                 for frame in rgb_all * 0.5 + 0.5]), fps)
+        print("Writing video to", out)
+        return out
+
+    # ------------------------------------------------------------------
+    # colored pcl export (reference inference.py:501-693)
+    # ------------------------------------------------------------------
+    def _backproject(self, cam, rgb, depth, valid):
+        """The valid pixels of one view in world space (float64 xyz, as the
+        JAX package's int pixel indices and float32 depth promote) and their
+        [0, 1] colors; focal = 1 / tan(fov / 2)."""
+        img_size = self.curriculum["img_size"]
+        focal = 1.0 / math.tan(math.radians(self.curriculum["fov"]) / 2.0)
+        ys, xs = np.nonzero(valid)
+        d = depth[ys, xs]
+        x_cam = (2 * xs - (img_size - 1)) / (img_size - 1) / focal * d
+        y_cam = (2 * ys - (img_size - 1)) / (img_size - 1) / focal * d
+        pts = np.stack([x_cam, y_cam, d, np.ones_like(d)], axis=1)
+        return (pts @ cam.T)[:, :3], rgb[ys, xs] * 0.5 + 0.5
+
+    @staticmethod
+    def _write_obj(out: Path, pts_xyz: list, pts_rgb: list) -> None:
+        xyz = np.concatenate(pts_xyz)
+        rgb255 = np.clip(np.concatenate(pts_rgb) * 255 + 0.5, 0, 255).astype(np.uint8)
+        with open(out, "w") as f:
+            for p, c in zip(xyz, rgb255):
+                f.write(f"v {p[0]} {p[1]} {p[2]} {c[0]} {c[1]} {c[2]}\n")
+
+    def render_pcl(self, pcl_idx: int, num_views: int = 20) -> Path:
+        """A colored point cloud (.obj) from `num_views` random cameras'
+        depth maps, and the views' rgb + depth grid."""
+        sample = self.valset[pcl_idx]
+        car_name = Path(sample["img_path"]).parent.parent.stem
+        print("Rendering point clouds for car", car_name)
+        z = self.encode(self._cond_batch(sample))
+        origins = sample_camera_positions(
+            num_views, generator=self.torch_rng, up_direction=self.up_direction,
+            cam_r_start=self.curriculum["cam_r_start"],
+            cam_r_end=self.curriculum["cam_r_end"])
+        cams = create_cam2world_matrix(origins, self.up_direction).numpy()
+
+        ray_start, ray_end = self.curriculum["ray_start"], self.curriculum["ray_end"]
+        pts_xyz, pts_rgb, rgbs, depth_maps = [], [], [], []
+        rgb_all, depth_all = self.render_batched(z, cams)
+        for cam, rgb, depth in zip(cams, rgb_all, depth_all):
+            rgbs.append(rgb * 0.5 + 0.5)
+            depth_maps.append(np.repeat((depth / ray_end)[..., None], 3, -1))
+            xyz, colors = self._backproject(cam, rgb, depth,
+                                            (depth > ray_start) & (depth < ray_end))
+            pts_xyz.append(xyz)
+            pts_rgb.append(colors)
+        stamp = datetime.now().strftime("%d--%H:%M:%S")
+        out = self._inference_dir() / f"{self.step}_{car_name}_{stamp}.obj"
+        self._write_obj(out, pts_xyz, pts_rgb)
+        print("Saving pcl to", out)
+        save_image_grid(rgbs + depth_maps,
+                        self._inference_dir() / f"{self.step}_pcl_{stamp}.png", nrow=num_views)
+        return out
+
+    def render_pcl_masked(self, pcl_idx: int, num_views: int = 8, mask: bool = True) -> Path:
+        """Colored-pcl export from *dataset* views, optionally masking the
+        backprojected depth with the GT depth map (`depth/{view:04}.npy`,
+        else `{view:04}0001.exr`), resized bilinearly to the render's size."""
+        from ..data.exr import read_exr_depth
+        from ..utils.resize import resize
+
+        sample0 = self.valset[pcl_idx]
+        car_dir = Path(sample0["img_path"]).parent.parent
+        car_name = car_dir.stem
+        z = self.encode(self._cond_batch(sample0))
+        cams_npz = np.load(car_dir / "cameras.npz")
+        n_available = len([k for k in cams_npz.files if k.startswith("world_mat_inv_")])
+        views = random.sample(range(n_available), min(num_views, n_available))
+
+        img_size = self.curriculum["img_size"]
+        ray_start, ray_end = self.curriculum["ray_start"], self.curriculum["ray_end"]
+        pts_xyz, pts_rgb = [], []
+        view_cams = np.stack([cams_npz[f"world_mat_inv_{view}"].astype(np.float32)
+                              for view in views])
+        rgb_all, depth_all = self.render_batched(z, view_cams)
+        for view, cam, rgb, depth in zip(views, view_cams, rgb_all, depth_all):
+            valid = (depth > ray_start) & (depth < ray_end)
+            if mask:
+                depth_npy = car_dir / "depth" / f"{view:04}.npy"
+                exr = car_dir / "depth" / f"{view:04}0001.exr"
+                gt = None
+                if depth_npy.exists():
+                    gt = np.load(depth_npy)
+                elif exr.exists():
+                    gt = read_exr_depth(exr, img_size)
+                if gt is not None:
+                    if gt.shape[0] != img_size:
+                        gt = resize(gt, img_size, "linear")  # cv2.resize's default
+                    valid &= gt > 1e-4
+            xyz, colors = self._backproject(cam, rgb, depth, valid)
+            pts_xyz.append(xyz)
+            pts_rgb.append(colors)
+        stamp = datetime.now().strftime("%d--%H:%M:%S")
+        out = self._inference_dir() / f"{self.step}_{car_name}_masked_{stamp}.obj"
+        self._write_obj(out, pts_xyz, pts_rgb)
+        print("Saving masked pcl to", out)
+        return out
+
+    # ------------------------------------------------------------------
+    # density voxel export (reference inference.py:342-385)
+    # ------------------------------------------------------------------
+    def save_voxel(self, car, cube_size: float = 1.2, voxel_resolution: int = 48) -> Path:
+        """The sigma grid of a car's conditioning over a `cube_size` cube at
+        voxel_resolution^3 points, as `inference/{car}.mrc`."""
+        car_name, cond = self._car_cond(car)
+        grid = sample_sigma_grid(
+            self.generator.eval_points, self.encode(cond), voxel_resolution=voxel_resolution,
+            cube_length=cube_size, max_points=min(64 ** 3, voxel_resolution ** 3),
+            device=self.device)
+        out = self._inference_dir() / f"{car_name}.mrc"
+        write_mrc(out, grid)
+        print("Save voxel to", out)
+        return out
+
+    # ------------------------------------------------------------------
+    # metrics (reference inference.py:695-729)
+    # ------------------------------------------------------------------
+    def compute_metrics(self):
+        """FID, oFID, LPIPS and PSNR of the `fid` subset rendered into
+        `evaluation_{voxres}_{num_steps}_{step}_128/`, appended to the run's
+        fid_inference.txt as `{step} {voxres} {num_steps} {fid} {ofid}
+        {lpips} {psnr}`."""
+        from ..eval import output_images, setup_evaluation
+        from ..eval.metrics import compute_metrics_from_dirs
+        from ..eval.weights import stamp_metric_log
+
+        meta = self.curriculum
+        self.evaluation_path = self.run_dir / (
+            f"evaluation_{meta['voxel_resolution']}_{meta['num_steps']}_{self.step}_128")
+        self.evaluation_path.mkdir(exist_ok=True)
+        real_dir = setup_evaluation(meta)
+        output_images(self, meta, self.evaluation_path)
+        results = compute_metrics_from_dirs(
+            real_dir, self.evaluation_path, Path(meta["dataset"]["path"]).parent / "val.lst",
+            device=self.device)
+        fid, ofid, lpips_score, psnr = results
+        stamp_metric_log(self.run_dir / "fid_inference.txt")
+        with open(self.run_dir / "fid_inference.txt", "a") as f:
+            f.write(f"{self.step} {meta['voxel_resolution']} {meta['num_steps']} "
+                    f"{fid} {ofid} {lpips_score} {psnr}\n")
+        print(f"Metrics at step {self.step}: FID {fid} | oFID {ofid} | "
+              f"LPIPS {lpips_score} | PSNR {psnr}")
+        return results
+
+    # ------------------------------------------------------------------
+    # latent interpolation (reference inference.py:731-834)
+    # ------------------------------------------------------------------
+    def interpolate_latent_codes(self, src_id: str, tgt_id: str, save_dir: str | Path,
+                                 mode: str = "fz", interpolate_n: int = 8) -> Path:
+        """interpolate_n + 1 renders from src's conditioning to tgt's, seen
+        from src's view 20 (else view 0), as one grid. On a (volume,
+        global) pair `mode` lerps both ("fz"), the volume ("f") or the
+        global feature ("z"). Needs no valset."""
+        z_src = self.encode(self._load_car_cond(src_id))
+        z_tgt = self.encode(self._load_car_cond(tgt_id))
+        cams_npz = np.load(Path(self.curriculum["dataset"]["path"]) / src_id / "cameras.npz")
+        cam_key = ("world_mat_inv_20" if "world_mat_inv_20" in cams_npz.files
+                   else "world_mat_inv_0")
+        cam = cams_npz[cam_key].astype(np.float32)[None]
+
+        ts = np.linspace(0.0, 1.0, interpolate_n + 1, dtype=np.float32)
+
+        def lerp(a, b):  # (1, ...) pair -> (len(ts), ...) stack, fp32 weights
+            return torch.cat([float(1 - t) * a + float(t) * b for t in ts])
+
+        if isinstance(z_src, tuple):
+            fv = lerp(z_src[0], z_tgt[0])
+            gz = lerp(z_src[1], z_tgt[1])
+            if mode == "f":
+                z_it = (fv, z_src[1].repeat_interleave(len(ts), dim=0))
+            elif mode == "z":
+                z_it = (z_src[0].repeat_interleave(len(ts), dim=0), gz)
+            else:
+                z_it = (fv, gz)
+        else:
+            z_it = lerp(z_src, z_tgt)
+        rgb_all, _ = self.render_batched(z_it, np.repeat(cam, len(ts), axis=0), z_batched=True)
+
+        out = Path(save_dir) / f"{src_id}_to_{tgt_id}_{mode}.png"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        save_image_grid([rgb * 0.5 + 0.5 for rgb in rgb_all], out, nrow=interpolate_n + 1,
+                        padding=0)
+        print("saving image to", out)
+        return out

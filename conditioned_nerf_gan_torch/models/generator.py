@@ -79,6 +79,13 @@ class ImplicitGenerator3d(nn.Module):
             compute_dtype=compute_dtype, use_fast_sin=use_fast_sin,
             use_kernel=use_kernel, generator=generator)
 
+    def eval_points(self, points: torch.Tensor, z) -> torch.Tensor:
+        """The SIREN field at world points (B, N, 3), contiguous -> (B, N, 4)
+        rgb + sigma (shape extraction). z is a latent or a (volume, global)
+        pair; on the card the points go through the kernels the render
+        uses."""
+        return self.siren(points, z)
+
     def _ray_pipeline(self, z, points, z_vals, rays_d_world, origins,
                       config: RenderConfig, fine_u, noise1, noise2, nerf_noise):
         """SIREN evals + hierarchical resample + integrate for one set of

@@ -100,12 +100,12 @@ class TorchLinear(nn.Module):
     the product is summed and returned in fp32, with `_MixedLinear`'s
     backward.
 
-    `extra` (B, 1, K_e) is an operand constant over the point axis: the
-    layer computes `self(concat([x, broadcast(extra)], -1))` with one weight
-    of fan_in K_x + K_e. In fp32 it does just that; under a compute_dtype it
-    takes the JAX form, a once-per-batch product with the weight's tail
-    columns added to the per-point one, each rounded as the JAX layer
-    rounds it.
+    `extra` (B, 1, K_e) is an operand constant over the point axis, the
+    policy's form alone: under a compute_dtype the layer computes
+    `self(concat([x, broadcast(extra)], -1))` with one weight of fan_in
+    K_x + K_e as the JAX layer does, a once-per-batch product with the
+    weight's tail columns added to the per-point one, each rounded as the
+    JAX layer rounds it. The fp32 path takes the concat itself.
     """
 
     def __init__(self, in_features: int, out_features: int, *,
@@ -130,7 +130,8 @@ class TorchLinear(nn.Module):
         dt = self.compute_dtype
         if dt is None:
             if extra is not None:
-                x = torch.cat([x, extra.expand(*x.shape[:-1], -1)], dim=-1)
+                raise ValueError("TorchLinear: `extra=` is the compute_dtype policy's form; "
+                                 "the fp32 path takes the concat itself")
             return F.linear(x, self.weight, self.bias)
         if extra is not None:
             dx = x.shape[-1]

@@ -1,8 +1,9 @@
 """ResNet-PointNet encoder (port of conditioned_nerf_gan_tpu/models/pointnet.py).
 
 Colored point cloud (B, T, 6) -> global latent (B, c_dim), fp32. Each block
-after the first also sees the max-pool of its input over the points, as the
-`extra=` operand of its `fc_0` and `shortcut` (`TorchLinear`).
+after the first also sees the max-pool of its input over the points: in fp32
+concatenated onto every point once (`_PooledConcat`), under a compute_dtype as
+the `extra=` operand of its `fc_0` and `shortcut` (`TorchLinear`).
 
 `compute_dtype` is the JAX encoder's `dtype`: the presets' bf16 policy.
 Under it the products run with bf16 operands and bf16 outputs (fc_pos and
@@ -19,6 +20,35 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import TorchLinear, zeros_init
+
+
+class _PooledConcat(torch.autograd.Function):
+    """(x (B, T, K), pooled (B, 1, F)) -> (s, relu(s)), s = concat([x,
+    broadcast(pooled)], -1): the fp32 block's one concat, feeding `shortcut`
+    (s) and `fc_0` (relu(s)). Only relu(s) is kept here, and the linears keep
+    s and relu(s), so a block saves two (B, T, K + F) tensors for the
+    backward and no relu(x) beside them. The backward sums each consumer's
+    cotangent over the points on its own before adding the two, as autograd
+    does for two concats of broadcast operands, so the grads are bit-equal
+    to that formulation's."""
+
+    @staticmethod
+    def forward(ctx, x, pooled):
+        s = torch.cat([x, pooled.expand(*x.shape[:-1], -1)], dim=-1)
+        r = F.relu(s)
+        ctx.width = x.shape[-1]
+        ctx.save_for_backward(r)
+        return s, r
+
+    @staticmethod
+    def backward(ctx, g_s, g_r):
+        (r,) = ctx.saved_tensors
+        k = ctx.width
+        relu_bwd = torch.ops.aten.threshold_backward
+        dx = relu_bwd(g_r[..., :k], r[..., :k], 0) + g_s[..., :k]
+        dpooled = (relu_bwd(g_r[..., k:].sum(1, keepdim=True), r[:, :1, k:], 0)
+                   + g_s[..., k:].sum(1, keepdim=True))
+        return dx, dpooled
 
 
 class ResnetBlockFC(nn.Module):
@@ -38,6 +68,10 @@ class ResnetBlockFC(nn.Module):
 
     def forward(self, x: torch.Tensor, pooled: torch.Tensor | None = None):
         """pooled: optional (B, 1, F) context, the tail of every point's input."""
+        if pooled is not None and self.fc_0.compute_dtype is None:
+            s, relu_s = _PooledConcat.apply(x, pooled)
+            x_s = s if self.shortcut is None else self.shortcut(s)
+            return x_s + self.fc_1(F.relu(self.fc_0(relu_s)))
         relu_pooled = F.relu(pooled) if pooled is not None else None
         dx = self.fc_1(F.relu(self.fc_0(F.relu(x), extra=relu_pooled)))
         x_s = x if self.shortcut is None else self.shortcut(x, extra=pooled)

@@ -178,11 +178,14 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_cli_refuses_unported_features(converted_run, capsys):
+    """What the port's CLI still refuses: multi-GPU ray sharding (A14) and
+    the JAX backend switch (the port takes --device)."""
     from conditioned_nerf_gan_torch.infer.__main__ import main
 
-    assert main([str(converted_run), "--video", "--metrics"]) != 0
+    assert main([str(converted_run), "--shard_rays", "--platform", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "ROADMAP A10" in err and "ROADMAP A9/A10" in err
+    assert "--shard_rays" in err and "ROADMAP A14" in err
+    assert "--platform" in err and "--device" in err
 
 
 def test_port_imports_without_jax():
