@@ -5,14 +5,20 @@ Conv2d kernel is HWIO and a Conv3d kernel DHWIO; the torch weights are OIHW
 and OIDHW. Module names map onto the port's attribute names:
     params.siren.mapping_network.TorchLinear_i -> siren.mapping_network.layers.i
     params.siren.FiLMLayer_i.TorchLinear_0     -> siren.film_layers.i.linear
+    params.siren.SirenLayer_i.TorchLinear_0    -> siren.siren_layers.i.linear
+    params.siren.ResSirenBlock_i.TorchLinear_j -> siren.res_blocks.i.linears.j
     params.block_i                             -> blocks.i
     params.fromRGB_i.conv                      -> fromRGB.i.conv
     params.layer_i.conv1|conv2|proj            -> layers.i.conv1|conv2|proj
-    params.encoder_i|decoder_i                 -> encoders.i|decoders.i
+    params.encoder_i|decoder_i|upconv_i        -> encoders.i|decoders.i|upconvs.i
     ....SingleConv1|SingleConv2.conv|groupnorm -> ....conv1|conv2.conv|norm
 and `kernel` -> `weight`, `bias` -> `bias`, a GroupNorm's `scale` ->
-`weight` (`final_layer` and `final_conv` keep their names). This is the
-inverse of the `t2j_*` helpers of tests/test_models_golden.py.
+`weight` (`final_layer`, `final_conv`, an ExtResNetBlock's conv1/2/3 and a
+SingleConv's `batchnorm` keep their names). A transposed conv's kernel
+(k, k, k, C_in, C_out) becomes the (C_in, C_out, k, k, k) weight of
+`F.conv_transpose3d` by a transpose alone: the JAX layer flips it inside
+its call, as conv_transpose3d does. This is the inverse of the `t2j_*`
+helpers of tests/test_models_golden.py.
 
 Optimizer state crosses with the same names: an optax chain's
 `ScaleByAdamState` gives each torch parameter's Adam state, `mu` ->
@@ -38,6 +44,9 @@ from .eval.weights import load_flat_weights  # noqa: F401  (re-exported)
 _RENAMES = (
     (re.compile(r"mapping_network\.TorchLinear_(\d+)"), r"mapping_network.layers.\1"),
     (re.compile(r"FiLMLayer_(\d+)\.TorchLinear_0"), r"film_layers.\1.linear"),
+    (re.compile(r"SirenLayer_(\d+)\.TorchLinear_0"), r"siren_layers.\1.linear"),
+    (re.compile(r"ResSirenBlock_(\d+)\.TorchLinear_(\d+)"), r"res_blocks.\1.linears.\2"),
+    (re.compile(r"(^|\.)upconv_(\d+)"), r"\1upconvs.\2"),
     (re.compile(r"(^|\.)block_(\d+)"), r"\1blocks.\2"),
     (re.compile(r"(^|\.)fromRGB_(\d+)"), r"\1fromRGB.\2"),
     (re.compile(r"(^|\.)layer_(\d+)"), r"\1layers.\2"),
@@ -74,6 +83,8 @@ def params_to_state_dict(flax_tree: dict) -> dict[str, torch.Tensor]:
                 weight = value.T
             elif value.ndim == 4:  # HWIO -> OIHW
                 weight = value.transpose(3, 2, 0, 1)
+            elif value.ndim == 5 and ".upconvs." in f".{module}.":
+                weight = value.transpose(3, 4, 0, 1, 2)  # DHWIO -> IODHW (transposed conv)
             elif value.ndim == 5:  # DHWIO -> OIDHW
                 weight = value.transpose(4, 3, 0, 1, 2)
             else:

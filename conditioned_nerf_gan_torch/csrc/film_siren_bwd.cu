@@ -13,10 +13,13 @@
 //   weights    dWsf[b,l] = h_l^T dpre_{l+1}, dcs[b,l] = 1^T dpre_{l+1},
 //              dW0f[b] = x^T dpre_0, dc0[b] = 1^T dpre_0,
 //              dWf[b] = h_{L-1}^T gb, dbf[b] = 1^T gb        (summed over points)
-// with bf16 operands and fp32 sums throughout. Two instances of the sweep:
-// DIN = 3 (xyz points) and DIN = 32 (trilinearly sampled U-Net features,
-// whose dX is the cotangent the trilinear backward scatters into the U-Net's
-// feature volume); L from 2 to 8 layers of 256 units.
+// with bf16 operands and fp32 sums throughout. Four instances of the sweep:
+// DIN = 3 (xyz points), DIN = 32 (trilinearly sampled U-Net features, whose
+// dX is the cotangent the trilinear backward scatters into the U-Net's
+// feature volume), DIN = 35 (32 features and xyz, TALLSIREN_dgx) and DIN =
+// 224 (the features of a PyramidUNet3D's three levels, whose dX the
+// trilinear backward scatters into each level by its column slice); L from 2
+// to 8 layers of 256 units.
 //
 // What bounds it: the recompute and the sweep are 2 x (L-1) x 256 x 256 x 2
 // FLOP per point on the tensor cores, the weight grads another (L-1) x 256 x
@@ -52,8 +55,18 @@
 //       m64n32k16 loop over K = 256, A the buffer dpre_0's epilogue staged,
 //       B W0f (32 rows x 256) TMA-loaded into one ring stage after the
 //       backward chunks. It also writes the bf16 points and cotangent as
-//       one 64-column row per point (x in columns 0 .. DIN-1, g in DIN ..
-//       DIN+3). Scratch: 2L KB + 128 bytes per point. What
+//       one row per point (x in columns 0 .. DIN-1, g in DIN .. DIN+3, zeros
+//       to the row's end): 64 columns at DIN <= 60, 256 at DIN 224.
+//       The wide inputs (DIN 35 and 224) take layer 0 as a trunk layer:
+//       each warp stages its rows of that xg row (x, g, zeros) into the A
+//       buffer, which is both layer 0's A operand (K = 48 or 256; W0f^T
+//       streams through the ring in chunks of 64 K-columns, its columns past
+//       DIN zeros, so g's columns multiply zeros) and the source of the xg
+//       row's TMA bulk store. Their dX: at DIN 35 the DIN-32 product with W0f
+//       zero-padded to 64 rows (m64n64k16); at DIN 224 a trunk-shaped product
+//       (m64n256k16, four chunks of W0f as 256 K-major rows from row b DIN,
+//       the columns past 224 discarded).
+//       Scratch: 2L KB + 2 x (64 or 256) bytes per point. What
 //       set its pace was its code: one loop holds every layer's epilogue and
 //       the next layer's products, once each; with the layers unrolled the
 //       sweep ran at the rate its instructions were fetched, far below the
@@ -67,8 +80,10 @@
 //       the same shared-memory chunk (16-byte loads of 8 columns, plain sums
 //       within a chunk, Kahan-compensated across chunks, the 8 warps' sums
 //       added in warp order). dW0f and dWf are 64-row tiles over the
-//       point/cotangent rows: x^T dpre_0 (rows 0 .. DIN-1) and gb^T h_{L-1}
-//       (rows DIN .. DIN+3, stored transposed); dbf sums those columns;
+//       point/cotangent rows: x^T dpre_0 (rows 0 .. DIN-1, one 128-row tile
+//       a work item: two at DIN 224) and gb^T h_{L-1} (rows DIN .. DIN+3 of
+//       the 64-column block that holds them, stored transposed); dbf sums
+//       those columns;
 //   (c) film_siren_bwd_reduce sums the segments' partials in segment order.
 //       No atomics: every sum runs in the same order in every launch, so the
 //       grads are bitwise deterministic from run to run.
@@ -79,8 +94,16 @@ namespace {
 
 using namespace film_trunk;
 
-constexpr int XG_COLS = 64;  // columns of the point/cotangent scratch (one 128-byte row):
-                             // x in 0 .. DIN-1, the cotangent in DIN .. DIN+3
+// columns of the point/cotangent scratch: x in 0 .. DIN-1, the cotangent in
+// DIN .. DIN+3, zeros to the end of a row of whole 64-column blocks (one at
+// DIN <= 60, four at 224). The cotangent's 4 columns lie in one 8-column group.
+__host__ __device__ constexpr int xg_cols(int din) { return (din + COUT + 63) / 64 * 64; }
+
+// DIN 35 and 224 take layer 0 as a trunk layer from the A buffer (see above)
+__host__ __device__ constexpr bool wide(int din) { return din == 35 || din == 224; }
+
+// rows of the W0f block dX's product reads at DIN 32 and 35 (zero rows past DIN)
+__host__ __device__ constexpr int dx_rows(int din) { return din <= 32 ? 32 : 64; }
 
 // ---- the sweep -----------------------------------------------------------------
 
@@ -125,14 +148,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 }
 
 // the warp's rows -> rows row .. row + 15 of the scratch that `map` reads:
-// four TMA bulk stores (16 rows x 64 columns each) issued by one lane, which
-// read the buffer while the next layer's products run
+// BLOCKS TMA bulk stores (16 rows x 64 columns each) issued by one lane,
+// which read the buffer while the next layer's products run
+template <int BLOCKS = 4>
 __device__ __forceinline__ void store_rows(const Staging& st, const CUtensorMap* map, int row) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncwarp();
   if (st.lane == 0) {
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
+    for (int s = 0; s < BLOCKS; ++s)
       asm volatile(
           "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
           :: "l"(reinterpret_cast<uint64_t>(map)), "r"(64 * s), "r"(row),
@@ -206,27 +230,70 @@ __device__ __forceinline__ void hidden_epilogue(const float (&acc)[ACC], const f
   store_rows(sa, hmap, row);
 }
 
-// dX's products at DIN 32: A the warpgroup's dpre_0 buffer (64 rows x 256
-// K-values, as SharedA reads it), B the ring stage holding W0f[b] as 4
-// K-major blocks of 32 rows x 64 K-values (4 KB each): k-step s reads block
-// s / 4 at 32 bytes x (s % 4). layer_products hands over the stage's
-// descriptor advanced by 32 bytes a k-step.
+// dX's products at DIN 32 (ROWS 32) and 35 (ROWS 64): A the warpgroup's
+// dpre_0 buffer (64 rows x 256 K-values, as SharedA reads it), B the ring
+// stage holding W0f[b] as 4 K-major blocks of ROWS rows x 64 K-values (ROWS x
+// 128 bytes each): k-step s reads block s / 4 at 32 bytes x (s % 4).
+// layer_products hands over the stage's descriptor advanced by 32 bytes a
+// k-step.
+template <int ROWS>
 struct DxIssue {
   uint32_t a;
-  __device__ __forceinline__ void operator()(float (&d)[16], int s, uint64_t desc_b,
+  __device__ __forceinline__ void operator()(float (&d)[ROWS / 2], int s, uint64_t desc_b,
                                              int scale_d) const {
-    const uint64_t b = desc_b - 2 * s + (uint64_t)((s >> 2) * (4096 >> 4) + 2 * (s & 3));
-    wgmma_m64n32k16_ss(d, sw128_desc(a + (s >> 2) * 8192 + (s & 3) * 32), b, scale_d);
+    const uint64_t b = desc_b - 2 * s + (uint64_t)((s >> 2) * (ROWS * 128 >> 4) + 2 * (s & 3));
+    const uint64_t a_desc = sw128_desc(a + (s >> 2) * 8192 + (s & 3) * 32);
+    if constexpr (ROWS == 32)
+      wgmma_m64n32k16_ss(d, a_desc, b, scale_d);
+    else
+      wgmma_m64n64k16_ss(d, a_desc, b, scale_d);
   }
 };
 
+// The warp's rows of the xg scratch into its rows of the A buffer, in the
+// fragment layout the epilogues use (register 2j + m of an x4 group: row pa
+// for even m, pb for odd, columns col(j + m / 2) and + 1): x (bf16), then the
+// cotangent, then zeros, and zeros past N; `GROUPS` 8-column groups.
+template <int DIN, int GROUPS>
+__device__ __forceinline__ void stage_xg(const Staging& sa, const Frag& f,
+                                         const float* __restrict__ pts,
+                                         const float* __restrict__ g, int b, int N, int pa,
+                                         int pb) {
+  auto value = [&](int p, int k) {
+    if (p >= N) return 0.f;
+    if (k < DIN) return pts[((size_t)b * N + p) * DIN + k];
+    if (k < DIN + COUT) return g[((size_t)b * N + p) * COUT + k - DIN];
+    return 0.f;
+  };
+  auto pair = [&](int p, int k) {
+    if constexpr (DIN % 2 == 0) {
+      if (p < N && k + 1 < DIN) {
+        const float2 v = *reinterpret_cast<const float2*>(pts + ((size_t)b * N + p) * DIN + k);
+        return pack_bf16(v.x, v.y);
+      }
+    }
+    return pack_bf16(value(p, k), value(p, k + 1));
+  };
+#pragma unroll
+  for (int j = 0; j < GROUPS; j += 2) {
+    uint32_t v[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) v[m] = pair((m & 1) ? pb : pa, f.col(j + (m >> 1)));
+    stmatrix_x4(sa.frag(j), v[0], v[1], v[2], v[3]);
+  }
+}
+
 // pts (B, N, DIN) f32; g (B, N, 4) f32; w0f (B, DIN, H) bf16; c (B, L, H)
 // f32; wf (H, 4) bf16. tmap reads Wsf^T and wmap Wsf, each as ((B (L-1) H) x
-// H); at DIN 32 w0tmap reads W0f^T as ((B H) x 32) and w0map W0f as ((B 32)
-// x H) in boxes of 32 rows (at DIN 3 both are unused copies). Writes
-// hbuf/pbuf (B, L, Np, H) bf16 (h_l; dpre_l) through hmap/pmap (each ((B L
-// Np) x H) in boxes of 16 rows x 64 columns) and reads cos_l back from pbuf;
-// writes xg (B, Np, 64) bf16 and dx (B, N, DIN) f32. Np = tiles x TILE.
+// H); at DIN > 3 w0tmap reads W0f^T as ((B H) x DINP), DINP = DIN rounded up
+// to 8, and w0map W0f: at DIN 32 as ((B 32) x H) in boxes of 32 rows, at 35
+// zero-padded to 64 rows a batch element as ((B 64) x H) in boxes of 64
+// rows, at 224 as ((B 224) x H) in boxes of 256 rows (at DIN 3 both are
+// unused copies). Writes hbuf/pbuf (B, L, Np, H) bf16 (h_l; dpre_l) through
+// hmap/pmap (each ((B L Np) x H) in boxes of 16 rows x 64 columns) and reads
+// cos_l back from pbuf; writes xg (B, Np, xg_cols(DIN)) bf16 (at DIN 35 and
+// 224 through xgmap, boxes of 16 rows x 64 columns) and dx (B, N, DIN) f32.
+// Np = tiles x TILE.
 template <int DIN>
 __global__ void __launch_bounds__(THREADS, 1)
 film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
@@ -235,6 +302,7 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
                      const __grid_constant__ CUtensorMap pmap,
                      const __grid_constant__ CUtensorMap w0tmap,
                      const __grid_constant__ CUtensorMap w0map,
+                     const __grid_constant__ CUtensorMap xgmap,
                      const float* __restrict__ pts, const float* __restrict__ g,
                      const __nv_bfloat16* __restrict__ w0f, const float* __restrict__ c,
                      const __nv_bfloat16* __restrict__ wf,
@@ -253,6 +321,7 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
   const int items = B * tiles;
   const int Np = tiles * TILE;
   const int layer_chunks = (L - 1) * CHUNKS_PER_LAYER;
+  constexpr bool WIDE = wide(DIN);
 
   if ((threadIdx.x >> 7) == PRODUCER_WG) {
     setmaxnreg_dec<24>();
@@ -260,14 +329,18 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
       for (int item = blockIdx.x; item < items; item += gridDim.x) {
         const int b = item / tiles;
         if constexpr (DIN == 32) produce(ring, &w0tmap, 0, b * H);  // layer 0: W0f^T
+        if constexpr (WIDE)
+          for (int kc = 0; kc < w0_chunks(DIN); ++kc) produce(ring, &w0tmap, kc * KC, b * H);
         for (int q = 0; q < layer_chunks; ++q)  // forward: Wsf[b, 0..L-2]^T
           produce(ring, &tmap, (q % CHUNKS_PER_LAYER) * KC,
                   (b * (L - 1) + q / CHUNKS_PER_LAYER) * H);
         for (int q = 0; q < layer_chunks; ++q)  // backward: Wsf[b, L-2..0]
           produce(ring, &wmap, (q % CHUNKS_PER_LAYER) * KC,
                   (b * (L - 1) + L - 2 - q / CHUNKS_PER_LAYER) * H);
-        if constexpr (DIN == 32)  // dX: W0f[b], 32 rows x 256
-          produce_blocks(ring, &w0map, b * DIN, DIN, CHUNKS_PER_LAYER);
+        if constexpr (DIN == 32 || DIN == 35)  // dX: W0f[b], 32 or 64 rows x 256
+          produce_blocks(ring, &w0map, b * dx_rows(DIN), dx_rows(DIN), CHUNKS_PER_LAYER);
+        if constexpr (DIN == 224)  // dX: W0f[b] as 4 chunks of 256 K-major rows
+          for (int kc = 0; kc < CHUNKS_PER_LAYER; ++kc) produce(ring, &w0map, kc * KC, b * DIN);
       }
     }
   } else {
@@ -295,8 +368,9 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
       // the xg rows of points pa and pb: lane q of the quad writes two
       // 16-byte groups of each. At DIN 3 groups 2q, 2q + 1 (lane 0: x in
       // columns 0-2, g in 3-6; the rest zeros); at DIN 32 group q (x, columns
-      // 8q .. 8q + 7) and group 4 + q (lane 0: g in columns 32-35; zeros)
-      {
+      // 8q .. 8q + 7) and group 4 + q (lane 0: g in columns 32-35; zeros).
+      // The wide inputs stage them in the A buffer instead (below).
+      if constexpr (!WIDE) {
         uint4 ra[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
         uint4 rb[2] = {ra[0], ra[1]};
         float ga[COUT], gb[COUT];
@@ -333,15 +407,27 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
           rb[1] = make_uint4(pack_bf16(gb[0], gb[1]), pack_bf16(gb[2], gb[3]), 0u, 0u);
         }
         const int g0 = DIN == 3 ? 2 * f.q : f.q, g1 = DIN == 3 ? 2 * f.q + 1 : 4 + f.q;
-        uint4* da = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pa) * XG_COLS);
-        uint4* db = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pb) * XG_COLS);
+        uint4* da = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pa) * xg_cols(DIN));
+        uint4* db = reinterpret_cast<uint4*>(xg + ((size_t)b * Np + pb) * xg_cols(DIN));
         da[g0] = ra[0];
         da[g1] = ra[1];
         db[g0] = rb[0];
         db[g1] = rb[1];
       }
 
-      layer0_products<DIN>(ring, f, acc, pts, w0f, b, N, pa, pb);
+      if constexpr (WIDE) {
+        // layer 0 from the A buffer: the warp's xg rows staged there (after
+        // its last stores from it have read it), stored to the scratch while
+        // the products run
+        constexpr int GROUPS = w0_chunks(DIN) * CHUNKS_PER_LAYER * 2;
+        stores_read(sa);
+        stage_xg<DIN, GROUPS>(sa, f, pts, g, b, N, pa, pb);
+        store_rows<xg_cols(DIN) / 64>(sa, &xgmap, b * Np + prow);
+        wg_sync(wg_bar, wg_phase);
+        layer_products<w0_chunks(DIN), w0_ksteps(DIN)>(ring, f.wg, acc, SharedA{a_buf});
+      } else {
+        layer0_products<DIN>(ring, f, acc, pts, w0f, b, N, pa, pb);
+      }
       // each layer's epilogue, then the next layer's products: one copy of
       // each in the code (unrolled, the kernel would be far larger than the
       // instruction cache, and it runs at the rate its code is fetched). The
@@ -418,7 +504,7 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
       if constexpr (DIN == 32) {
         // dX = dpre_0 . W0f^T on the tensor cores, A the buffer dpre_0 sits in
         float d[16];
-        layer_products<1, 16>(ring, f.wg, d, DxIssue{a_buf});
+        layer_products<1, 16>(ring, f.wg, d, DxIssue<32>{a_buf});
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           if (pa < N)
@@ -427,6 +513,33 @@ film_siren_bwd_sweep(const __grid_constant__ CUtensorMap tmap,
           if (pb < N)
             *reinterpret_cast<float2*>(dx + ((size_t)b * N + pb) * DIN + f.col(j)) =
                 make_float2(d[4 * j + 2], d[4 * j + 3]);
+        }
+      } else if constexpr (DIN == 35) {
+        // the same against W0f's 64 zero-padded rows; a row of dx is 35
+        // floats, so the stores are scalar
+        float d[32];
+        layer_products<1, 16>(ring, f.wg, d, DxIssue<64>{a_buf});
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = f.col(j) + (e & 1), p = (e & 2) ? pb : pa;
+            if (k < DIN && p < N) dx[((size_t)b * N + p) * DIN + k] = d[4 * j + e];
+          }
+        }
+      } else if constexpr (DIN == 224) {
+        // dX = dpre_0 . W0f^T as a trunk layer: 256 output columns, the
+        // first 224 stored
+        layer_mma_smem(ring, f.wg, acc, a_buf);
+#pragma unroll
+        for (int j = 0; j < ACC / 4; ++j) {
+          if (f.col(j) >= DIN) continue;
+          if (pa < N)
+            *reinterpret_cast<float2*>(dx + ((size_t)b * N + pa) * DIN + f.col(j)) =
+                make_float2(acc[4 * j], acc[4 * j + 1]);
+          if (pb < N)
+            *reinterpret_cast<float2*>(dx + ((size_t)b * N + pb) * DIN + f.col(j)) =
+                make_float2(acc[4 * j + 2], acc[4 * j + 3]);
         }
       } else {
         // dX = dpre_0 . W0f^T on the FMA units, summed across the quad
@@ -507,9 +620,18 @@ struct WgradJob {
   int cs_col0, cs_cols;
 };
 
-// Work item t of a batch element (0 <= t < 2L): trunk grad l = t / 2, rows
-// 128 (t % 2) onwards, for t < 2(L-1); then dW0f and dWf. The points have
-// `din` features: the cotangent's first column in the xg rows.
+// dW0f's 128-row tiles: one a work item
+__host__ __device__ constexpr int w0_tiles(int din) { return (din + 127) / 128; }
+
+// work items of a batch element: two a trunk grad, dW0f's tiles, dWf
+__host__ __device__ constexpr int items_per_b(int L, int din) {
+  return 2 * (L - 1) + w0_tiles(din) + 1;
+}
+
+// Work item t of a batch element (0 <= t < items_per_b): trunk grad l = t /
+// 2, rows 128 (t % 2) onwards, for t < 2(L-1); then dW0f's tiles of 128 rows
+// and dWf. The points have `din` features: the cotangent's first column in
+// the xg rows.
 __device__ WgradJob make_job(int t, int b, int B, int L, int din, int Np,
                              const CUtensorMap* hmap, const CUtensorMap* pmap,
                              const CUtensorMap* xmap, float* grads) {
@@ -536,23 +658,25 @@ __device__ WgradJob make_job(int t, int b, int B, int L, int din, int Np,
     j.row0 = 128 * half;
     j.rows = 128;
     j.colsum = half == 0 ? dcs + ((size_t)b * (L - 1) + l) * H : nullptr;
-  } else if (t == 2 * (L - 1)) {  // dW0f[b] = x^T dpre_0 (rows 0 .. din-1); dc0[b]
+  } else if (t < 2 * (L - 1) + w0_tiles(din)) {
+    // dW0f[b] = x^T dpre_0, rows 128 k .. of 0 .. din-1; dc0[b] with tile 0
+    const int k = t - 2 * (L - 1);
     j.amap = xmap;
     j.bmap = pmap;
     j.a_row0 = b * Np;
     j.b_row0 = b * L * Np;
-    j.a_col0 = 0;
-    j.a_boxes = 1;
+    j.a_col0 = 128 * k;
+    j.a_boxes = din - 128 * k > 64 ? 2 : 1;
     j.out = dw0 + (size_t)b * din * H;
     j.row0 = 0;
     j.rows = din;
-    j.colsum = dc0 + (size_t)b * H;
+    j.colsum = k == 0 ? dc0 + (size_t)b * H : nullptr;
   } else {  // dWf[b]^T = gb^T h_{L-1} (rows din .. din+3); dbf[b] = the sums of gb
     j.amap = xmap;
     j.bmap = hmap;
     j.a_row0 = b * Np;
     j.b_row0 = (b * L + L - 1) * Np;
-    j.a_col0 = 0;
+    j.a_col0 = din / 64 * 64;  // the 64-column block that holds the cotangent
     j.a_boxes = 1;
     j.out = dwf + (size_t)b * H * COUT;
     j.transposed = true;
@@ -599,7 +723,7 @@ film_siren_bwd_wgrad(const __grid_constant__ CUtensorMap hmap,
   }
   __syncthreads();
 
-  const int per_b = 2 * L;
+  const int per_b = items_per_b(L, din);
   const int items = segments * B * per_b;
   const size_t block = grads_size(B, L, din);
   int stage = 0;
@@ -652,8 +776,11 @@ film_siren_bwd_wgrad(const __grid_constant__ CUtensorMap hmap,
                                     part + (size_t)s * block);
       const bool sums = job.colsum != nullptr;
       // the lanes of the column groups summed: all 32 of B's 256 columns, or
-      // the one 8-column group of A holding the cotangent's columns
-      const bool my_sums = sums && (job.cs_from_a ? cg == job.cs_col0 / 8 : cg < H / 8);
+      // the one 8-column group of A's box holding the cotangent's columns;
+      // a lane's 8 sums are those of columns col0 + 8 cg ..
+      const int col0 = job.cs_from_a ? job.a_col0 : 0;
+      const bool my_sums =
+          sums && (job.cs_from_a ? cg == (job.cs_col0 - col0) / 8 : cg < H / 8);
       // the thread's 16-byte group of a chunk's row 8 rg
       const uint32_t group = (job.cs_from_a ? 0 : (A_BOXES + (cg >> 3)) * BOX_BYTES) +
                              rg * 8 * 128;
@@ -729,7 +856,7 @@ film_siren_bwd_wgrad(const __grid_constant__ CUtensorMap hmap,
           float v[8];
 #pragma unroll
           for (int i = 0; i < 8; ++i) v[i] = sum[i] - comp[i];
-          const uint32_t at = buf + (rg * H + 8 * cg) * 4;
+          const uint32_t at = buf + (rg * H + col0 + 8 * cg) * 4;
           asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
                        :: "r"(at), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]) : "memory");
           asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
@@ -771,7 +898,8 @@ __global__ void film_siren_bwd_reduce(const float* __restrict__ part,
 template <int DIN>
 int launch_sweep(const CUtensorMap& tmap, const CUtensorMap& wmap, const CUtensorMap& hstore,
                  const CUtensorMap& pstore, const CUtensorMap& w0tmap, const CUtensorMap& w0map,
-                 const float* pts, const float* g, const void* w0f, const float* c,
+                 const CUtensorMap& xgstore, const float* pts, const float* g, const void* w0f,
+                 const float* c,
                  const void* wf, const void* pbuf, void* xg, float* dx, int B, int N, int L,
                  int tiles, int grid, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(film_siren_bwd_sweep<DIN>,
@@ -779,7 +907,7 @@ int launch_sweep(const CUtensorMap& tmap, const CUtensorMap& wmap, const CUtenso
                                          (int)SWEEP_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   film_siren_bwd_sweep<DIN><<<grid, THREADS, SWEEP_SMEM_BYTES, s>>>(
-      tmap, wmap, hstore, pstore, w0tmap, w0map, pts, g,
+      tmap, wmap, hstore, pstore, w0tmap, w0map, xgstore, pts, g,
       static_cast<const __nv_bfloat16*>(w0f), c, static_cast<const __nv_bfloat16*>(wf),
       static_cast<const __nv_bfloat16*>(pbuf), static_cast<__nv_bfloat16*>(xg), dx, B, N, L,
       tiles);
@@ -790,28 +918,31 @@ int launch_sweep(const CUtensorMap& tmap, const CUtensorMap& wmap, const CUtenso
 
 // Launches the kernels on `stream`; returns the first failing
 // cudaGetLastError() (0 = all launched). Scratch and outputs are allocated by
-// the caller: hbuf/pbuf (B, L, Np, H) bf16, xg (B, Np, 64) bf16 with Np = N
-// rounded up to 128; dx (B, N, din) f32; `grads` one block of
+// the caller: hbuf/pbuf (B, L, Np, H) bf16, xg (B, Np, xg_cols(din)) bf16
+// with Np = N rounded up to 128; dx (B, N, din) f32; `grads` one block of
 // grads_size(B, L, din) floats (layout above); `part` segments x that many
 // floats with segments = ceil(Np / seg), seg a multiple of 64 (with one
 // segment `part` may be `grads`). wsf is (B, L-1, H_in, H_out) bf16 and wsft
-// its transpose per layer; w0f (B, din, H) bf16 and, at din 32, w0ft its
-// transpose (B, H, 32) (at din 3 unused). din is 3 or 32.
+// its transpose per layer; w0f (B, din, H) bf16, at din 35 zero-padded to
+// (B, 64, H); at din > 3 w0ft is W0f's transpose (B, H, DINP), DINP = din
+// rounded up to 8, its columns past din zero (at din 3 unused). din is 3,
+// 32, 35 or 224.
 extern "C" int film_siren_bwd(const float* pts, const float* g, const void* w0f,
                               const void* w0ft, const float* c, const void* wsf,
                               const void* wsft, const void* wf, void* hbuf, void* pbuf,
                               void* xg, float* dx, float* part, float* grads, int B, int N,
                               int L, int din, int seg, void* stream) {
   if (B <= 0 || N <= 0 || L < 2 || L > MAX_LAYERS || seg <= 0 || seg % KP ||
-      (din != 3 && din != 32))
+      (din != 3 && din != 32 && din != 35 && din != 224))
     return (int)cudaErrorInvalidValue;
   const int tiles = (N + TILE - 1) / TILE;
   const long long Np = (long long)tiles * TILE;
   const long long segments = (Np + seg - 1) / seg;
-  if ((long long)B * L * Np > 0x7fffffff || segments * B * 2 * L > 0x7fffffff)
+  if ((long long)B * L * Np > 0x7fffffff || segments * B * items_per_b(L, din) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CUtensorMap tmap, wmap, hmap, pmap, xmap, hstore, pstore, w0tmap, w0map;
+  CUtensorMap tmap, wmap, hmap, pmap, xmap, hstore, pstore, w0tmap, w0map, xgstore;
+  const int xgc = xg_cols(din);
   const uint64_t rows = (uint64_t)B * L * Np;
   int e = weight_map(&tmap, wsft, (uint64_t)B * (L - 1) * H, H);
   if (!e) e = weight_map(&wmap, wsf, (uint64_t)B * (L - 1) * H, H);
@@ -819,18 +950,23 @@ extern "C" int film_siren_bwd(const float* pts, const float* g, const void* w0f,
   if (!e) e = tensor_map(&pstore, pbuf, rows, H, 16);
   if (!e) e = tensor_map(&hmap, hbuf, rows, H, KP);
   if (!e) e = tensor_map(&pmap, pbuf, rows, H, KP);
-  if (!e) e = tensor_map(&xmap, xg, (uint64_t)B * Np, XG_COLS, KP);
-  if (!e && din == 32) e = weight_map(&w0tmap, w0ft, (uint64_t)B * H, din);
-  if (!e && din == 32) e = tensor_map(&w0map, w0f, (uint64_t)B * din, H, din);
-  if (din != 32) w0tmap = w0map = tmap;  // unused copies
+  if (!e) e = tensor_map(&xmap, xg, (uint64_t)B * Np, xgc, KP);
+  if (!e && din != 3) e = weight_map(&w0tmap, w0ft, (uint64_t)B * H, (din + 7) & ~7);
+  if (!e && din != 224 && din != 3)
+    e = tensor_map(&w0map, w0f, (uint64_t)B * dx_rows(din), H, dx_rows(din));
+  if (!e && din == 224) e = weight_map(&w0map, w0f, (uint64_t)B * din, H);
+  if (!e && wide(din)) e = tensor_map(&xgstore, xg, (uint64_t)B * Np, xgc, 16);
+  if (din == 3) w0tmap = w0map = tmap;  // unused copies
+  if (!wide(din)) xgstore = tmap;
   int grid = 0, wgrid = 0;
   if (!e) e = persistent_grid(B * tiles, &grid);
-  if (!e) e = persistent_grid((int)(segments * B * 2 * L), &wgrid);
+  if (!e) e = persistent_grid((int)(segments * B * items_per_b(L, din)), &wgrid);
   if (e) return e;
-  e = din == 32 ? launch_sweep<32>(tmap, wmap, hstore, pstore, w0tmap, w0map, pts, g, w0f, c,
-                                   wf, pbuf, xg, dx, B, N, L, tiles, grid, s)
-                : launch_sweep<3>(tmap, wmap, hstore, pstore, w0tmap, w0map, pts, g, w0f, c, wf,
-                                  pbuf, xg, dx, B, N, L, tiles, grid, s);
+#define FT_SWEEP(D)                                                                        \
+  launch_sweep<D>(tmap, wmap, hstore, pstore, w0tmap, w0map, xgstore, pts, g, w0f, c, wf,  \
+                  pbuf, xg, dx, B, N, L, tiles, grid, s)
+  e = din == 3 ? FT_SWEEP(3) : din == 32 ? FT_SWEEP(32) : din == 35 ? FT_SWEEP(35) : FT_SWEEP(224);
+#undef FT_SWEEP
   if (e) return e;
   cudaError_t err = cudaFuncSetAttribute(
       film_siren_bwd_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WGRAD_SMEM_BYTES);

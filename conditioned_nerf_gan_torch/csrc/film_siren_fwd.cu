@@ -8,16 +8,20 @@
 //     h_0 = sin7(x . W0f[b] + c[b,0])                       fp32 accumulation
 //     h_l = sin7(bf16(h_{l-1}) . Wsf[b,l-1] + c[b,l])       bf16 operands
 //     out = bf16(h_{L-1}) . bf16(Wf) + bf                   (B, N, 4) fp32
-// Two instances: DIN = 3 (xyz points, the SHORTSIREN family) and DIN = 32
-// (trilinearly sampled U-Net features, the voxel-conditioned FG family);
-// L from 2 to 8 layers of 256 units.
+// Four instances: DIN = 3 (xyz points, the SHORTSIREN family), DIN = 32
+// (trilinearly sampled U-Net features, the voxel-conditioned FG family),
+// DIN = 35 (32 features and xyz, TALLSIREN_dgx) and DIN = 224 (the 128 + 64 +
+// 32 features of a PyramidUNet3D's three levels); L from 2 to 8 layers of 256
+// units.
 //
 // What bounds it: per point, (L-1) x 256 x 256 x 2 + small FLOP (0.4 MFLOP at
 // L = 4, 0.94 MFLOP at DIN = 32, L = 8) against 16 + 4 DIN bytes of device
 // I/O, so it is compute-bound: the tensor cores, and the sin7 epilogues
 // between the products (about as long again on the FP32 pipes at L = 4).
 // Each 128-point tile also streams its batch element's folded weights
-// (393 KB at L = 4) from L2.
+// (393 KB at L = 4) from L2. At DIN = 224 and L = 2 (the pyramid's
+// DOUBLESIREN) the point's 912 bytes of fp32 features and output take about
+// as long at HBM's rate as its 0.25 MFLOP at the tensor cores' peak.
 //
 // What the design does about it: the trunk of film_siren_trunk.cuh (wgmma
 // with h in registers, a TMA weight ring under mbarriers, a producer
@@ -27,7 +31,14 @@
 //   * layer 0 at DIN = 3 (K = 3) runs on the FMA units into the
 //     accumulators; at DIN = 32 it is two wgmma k-steps with x as register A
 //     fragments (loaded from device memory) and W0f^T as the first chunk of
-//     the ring (its columns past 32 read as zeros from the TMA, unused);
+//     the ring (its columns past 32 read as zeros from the TMA, unused). At
+//     DIN = 35 and 224 (`wide_layer0`) it is a trunk-shaped product: x,
+//     rounded to bf16 and zero past DIN, goes into the registers that hold h
+//     in the later layers (free until layer 0's epilogue), as A fragments of
+//     K = 48 (3 k-steps, one chunk) or 256 (16 k-steps, four chunks), and
+//     W0f^T streams through the ring in chunks of 64 K-columns, its columns
+//     past DIN read as zeros from the TMA. At 224 the last chunk's second
+//     half multiplies zeros (an eighth of layer 0's products);
 //   * one loop then runs every layer's epilogue (sin7 of acc + c_l into the
 //     A registers) and the next layer's products: one copy of each in the
 //     code. Unrolled layer by layer the kernel ran slower: a kernel this
@@ -44,10 +55,47 @@ namespace {
 
 using namespace film_trunk;
 
-// pts (B, N, DIN) f32; w0: at DIN 3 W0f (B, 3, H), at DIN 32 W0f^T (B, H, 32),
-// bf16; c (B, L, H) f32 (c_0 then c_1..); wf (H, 4) bf16; bf (4) f32; out
-// (B, N, 4) f32. wmap reads Wsf^T as ((B (L-1) H) x H); w0map W0f^T as
-// ((B H) x 32) (DIN 32 only). `tiles` = ceil(N / TILE).
+// Layer 0's products into acc at DIN 35 or 224, x . W0f (the epilogue adds
+// c_0): x of points pa and pb of batch element b (zeros past N and past DIN),
+// rounded to bf16, as the A fragments of layer 0's k-steps in `a` (the
+// registers of h, free until layer 0's epilogue); W0f^T the ring's next
+// w0_chunks(DIN) chunks. A fragment register 2j (2j + 1) holds columns
+// col(j), col(j) + 1 of row pa (pb), as an accumulator fragment does.
+template <int DIN, int NS>
+__device__ __forceinline__ void wide_layer0(Ring<NS>& ring, const Frag& f, float (&acc)[ACC],
+                                            uint32_t (&a)[HREGS],
+                                            const float* __restrict__ pts, int b, int N, int pa,
+                                            int pb) {
+  static_assert(DIN == 35 || DIN == 224, "the wide instances are DIN 35 and 224");
+  constexpr int CHUNKS = w0_chunks(DIN), KSTEPS = w0_ksteps(DIN);
+  constexpr int GROUPS = ((CHUNKS - 1) * CHUNKS_PER_LAYER + KSTEPS) * 2;  // of 8 columns
+  const float* xa = pts + ((size_t)b * N + pa) * DIN;
+  const float* xb = pts + ((size_t)b * N + pb) * DIN;
+  auto pair = [&](const float* x, bool live, int k) {
+    float2 v = make_float2(0.f, 0.f);
+    if (live && k < DIN) {
+      if constexpr (DIN % 2 == 0) {
+        v = *reinterpret_cast<const float2*>(x + k);
+      } else {
+        v.x = x[k];
+        if (k + 1 < DIN) v.y = x[k + 1];
+      }
+    }
+    return pack_bf16(v.x, v.y);
+  };
+#pragma unroll
+  for (int j = 0; j < GROUPS; ++j) {
+    a[2 * j] = pair(xa, pa < N, f.col(j));
+    a[2 * j + 1] = pair(xb, pb < N, f.col(j));
+  }
+  layer_mma<CHUNKS, KSTEPS>(ring, f.wg, acc, a);
+}
+
+// pts (B, N, DIN) f32; w0: at DIN 3 W0f (B, 3, H), else W0f^T (B, H, DINP)
+// with DINP = DIN rounded up to 8 (zero columns past DIN), bf16; c (B, L, H)
+// f32 (c_0 then c_1..); wf (H, 4) bf16; bf (4) f32; out (B, N, 4) f32. wmap
+// reads Wsf^T as ((B (L-1) H) x H); w0map W0f^T as ((B H) x DINP) (DIN > 3
+// only). `tiles` = ceil(N / TILE).
 template <int DIN>
 __global__ void __launch_bounds__(THREADS, 1)
 film_siren_fwd_kernel(const __grid_constant__ CUtensorMap wmap,
@@ -56,7 +104,8 @@ film_siren_fwd_kernel(const __grid_constant__ CUtensorMap wmap,
                       const float* __restrict__ c, const __nv_bfloat16* __restrict__ wf,
                       const float* __restrict__ bf, float* __restrict__ out, int B, int N,
                       int L, int tiles) {
-  static_assert(DIN == 3 || DIN == 32, "DIN is 3 or 32");
+  static_assert(DIN == 3 || DIN == 32 || DIN == 35 || DIN == 224, "DIN is 3, 32, 35 or 224");
+  constexpr bool WIDE = DIN == 35 || DIN == 224;
   extern __shared__ unsigned char smem[];
   Ring<NSTAGE> ring = ring_setup<NSTAGE>(smem);
   const int items = B * tiles;
@@ -68,6 +117,8 @@ film_siren_fwd_kernel(const __grid_constant__ CUtensorMap wmap,
       for (int item = blockIdx.x; item < items; item += gridDim.x) {
         const int b = item / tiles;
         if constexpr (DIN == 32) produce(ring, &w0map, 0, b * H);
+        if constexpr (WIDE)
+          for (int kc = 0; kc < w0_chunks(DIN); ++kc) produce(ring, &w0map, kc * KC, b * H);
         for (int q = 0; q < trunk_chunks; ++q)
           produce(ring, &wmap, (q % CHUNKS_PER_LAYER) * KC,
                   (b * (L - 1) + q / CHUNKS_PER_LAYER) * H);
@@ -97,7 +148,10 @@ film_siren_fwd_kernel(const __grid_constant__ CUtensorMap wmap,
         }
       };
 
-      layer0_products<DIN>(ring, f, acc, pts, w0, b, N, pa, pb);
+      if constexpr (WIDE)
+        wide_layer0<DIN>(ring, f, acc, h, pts, b, N, pa, pb);
+      else
+        layer0_products<DIN>(ring, f, acc, pts, w0, b, N, pa, pb);
 
       // each layer's epilogue, then the next layer's products: one copy of
       // each in the code (unrolled, a kernel larger than the instruction
@@ -150,9 +204,9 @@ int launch(const float* pts, const void* w0, const float* c, const void* wst, co
   int err = weight_map(&wmap, wst, (uint64_t)B * (L - 1) * H, H);
   if (err) return err;
   // at DIN 3 the ring has no layer-0 chunk: w0map is a copy never read
-  err = DIN == 32 ? weight_map(&w0map, w0, (uint64_t)B * H, DIN) : 0;
+  err = DIN != 3 ? weight_map(&w0map, w0, (uint64_t)B * H, (DIN + 7) & ~7) : 0;
   if (err) return err;
-  if (DIN != 32) w0map = wmap;
+  if (DIN == 3) w0map = wmap;
   const int tiles = (N + TILE - 1) / TILE;
   int grid = 0;
   err = persistent_grid(B * tiles, &grid);
@@ -169,10 +223,10 @@ int launch(const float* pts, const void* w0, const float* c, const void* wst, co
 
 }  // namespace
 
-// Launches the DIN = din instance (3 or 32) on `stream`; returns
+// Launches the DIN = din instance (3, 32, 35 or 224) on `stream`; returns
 // cudaGetLastError() (0 = launched). wst is Wsf transposed per layer,
-// (B, L-1, H_out, H_in) bf16; w0 is W0f (B, 3, H) at din 3 and W0f^T
-// (B, H, 32) at din 32.
+// (B, L-1, H_out, H_in) bf16; w0 is W0f (B, 3, H) at din 3 and else W0f^T
+// (B, H, DINP), DINP = din rounded up to 8, its columns past din zero.
 extern "C" int film_siren_fwd(const float* pts, const void* w0, const float* c,
                               const void* wst, const void* wf, const float* bf, float* out,
                               int B, int N, int L, int din, void* stream) {
@@ -181,5 +235,7 @@ extern "C" int film_siren_fwd(const float* pts, const void* w0, const float* c,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (din == 3) return launch<3>(pts, w0, c, wst, wf, bf, out, B, N, L, s);
   if (din == 32) return launch<32>(pts, w0, c, wst, wf, bf, out, B, N, L, s);
+  if (din == 35) return launch<35>(pts, w0, c, wst, wf, bf, out, B, N, L, s);
+  if (din == 224) return launch<224>(pts, w0, c, wst, wf, bf, out, B, N, L, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -569,6 +569,14 @@ __device__ __forceinline__ void layer0_products(Ring<NS>& ring, const Frag& f, f
   }
 }
 
+// Layer 0 of a wide input (DIN 35 or 224; film_siren_fwd.cu and film_siren_bwd.cu
+// run it as a trunk layer): the chunks of 64 K-columns of W0f^T the ring
+// carries, and the k-steps of 16 read of each (all four but in a lone chunk)
+__host__ __device__ constexpr int w0_chunks(int din) { return (din + KC - 1) / KC; }
+__host__ __device__ constexpr int w0_ksteps(int din) {
+  return w0_chunks(din) == 1 ? (din + 15) / 16 : KC / 16;
+}
+
 // ---- host ----------------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -156,6 +156,7 @@ trilinear_bwd_presum_kernel(const float* __restrict__ coords, const float* __res
     sm.frac[tid] = make_float4(ax.t, ay.t, az.t, 0.f);
     const unsigned base = (unsigned)((az.i * H + ay.i) * W + ax.i);
     sm.base[tid] = base;
+    // a side of 1 has t 0 on its axis: its second corner weighs 0, is not live
     const bool live_z[2] = {az.t != 1.f, az.t != 0.f};
     const bool live_y[2] = {ay.t != 1.f, ay.t != 0.f};
     const bool live_x[2] = {ax.t != 1.f, ax.t != 0.f};
@@ -330,7 +331,7 @@ trilinear_dcoords_kernel(const float* __restrict__ volume, const float* __restri
 }  // namespace
 
 // volume (B, D, H, W, C) (read only for dcoords), coords (B, N, 3), g (B, N,
-// C), all fp32, contiguous, 16-byte aligned; C % 4 == 0, every side >= 2.
+// C), all fp32, contiguous, 16-byte aligned; C % 4 == 0, every side >= 1.
 // dvol (B, D, H, W, C) fp32 that the VJP is added into, or null (then D H W
 // may be any size; else < 2^31); dcoords (B, N, 3) fp32 or null (then C / 4
 // must be a power of two <= 32). Launches on `stream`; returns
@@ -338,7 +339,7 @@ trilinear_dcoords_kernel(const float* __restrict__ volume, const float* __restri
 extern "C" int trilinear_bwd(const float* volume, const float* coords, const float* g,
                              float* dvol, float* dcoords, int B, int N, int D, int H, int W,
                              int C, void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || C % 4 || D < 2 || H < 2 || W < 2)
+  if (B <= 0 || N <= 0 || C <= 0 || C % 4 || D < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   const int quads = C / 4;
   if (dcoords != nullptr && (quads > 32 || (quads & (quads - 1))))

@@ -32,17 +32,25 @@ namespace trilinear {
 constexpr int THREADS = 256;
 
 struct Axis {
-  int i;        // anchor, in [0, size - 2]
+  int i;        // anchor, in [0, max(size - 2, 0)]
   float t;      // fraction in [0, 1]
   bool inside;  // the unclamped position lies in [0, size - 1]: the clip passes grads
 };
 
+// A side of 1 clamps both corners onto index 0: the anchor is 0, the
+// fraction 0, and the second corner is `step` (0 on that axis) from it.
 __device__ __forceinline__ Axis anchor(float coord, int size) {
   // ((coord + 1) * size - 1) / 2, clamped to [0, size - 1]
   const float u = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(coord, 1.f), (float)size), 1.f), 0.5f);
   const float f = fminf(fmaxf(u, 0.f), (float)(size - 1));
-  const int i = min((int)floorf(f), size - 2);
+  const int i = max(min((int)floorf(f), size - 2), 0);
   return {i, __fsub_rn(f, (float)i), u >= 0.f && u <= (float)(size - 1)};
+}
+
+// the offset of an axis' second corner from its first: the axis' stride, or
+// 0 on a side of 1
+__device__ __forceinline__ long long step(int size, long long stride) {
+  return size > 1 ? stride : 0;
 }
 
 __device__ __forceinline__ float lerp(float a, float b, float t) {
@@ -62,7 +70,7 @@ __device__ __forceinline__ float4 scale4(float4 a, float s) {
 
 // One item's point: its anchors and fractions, and the offset (in floats) of
 // its lane's 4 channels of the (z0, y0, x0) corner row; the other corners are
-// sx, sy, sz floats on.
+// sx, sy, sz floats on (0 along a side of 1).
 struct Sample {
   long long point;  // b * N + n
   int q;            // channel quad
@@ -87,9 +95,9 @@ __device__ __forceinline__ Sample sample(const float* __restrict__ coords, long 
     s.ay = anchor(__ldg(xyz + 1), H);
     s.az = anchor(__ldg(xyz + 2), D);
     const int sy = W * 32, sz = H * W * 32;
-    s.sx = 32;
-    s.sy = sy;
-    s.sz = sz;
+    s.sx = step(W, 32);
+    s.sy = step(H, sy);
+    s.sz = step(D, sz);
     s.base = (long long)b * D * sz + (s.az.i * sz + s.ay.i * sy + s.ax.i * 32 + 4 * s.q);
   } else {
     const int quads = C / 4;
@@ -100,10 +108,11 @@ __device__ __forceinline__ Sample sample(const float* __restrict__ coords, long 
     s.ax = anchor(__ldg(xyz), W);
     s.ay = anchor(__ldg(xyz + 1), H);
     s.az = anchor(__ldg(xyz + 2), D);
-    s.sx = C;
-    s.sy = (long long)W * C;
-    s.sz = (long long)H * W * C;
-    s.base = b * D * s.sz + s.az.i * s.sz + s.ay.i * s.sy + s.ax.i * s.sx + 4 * s.q;
+    const long long sy = (long long)W * C, sz = (long long)H * W * C;
+    s.sx = step(W, C);
+    s.sy = step(H, sy);
+    s.sz = step(D, sz);
+    s.base = b * D * sz + s.az.i * sz + s.ay.i * sy + s.ax.i * (long long)C + 4 * s.q;
   }
   return s;
 }

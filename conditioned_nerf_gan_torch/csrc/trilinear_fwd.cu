@@ -8,7 +8,7 @@
 // forward of conditioned_nerf_gan_tpu/ops/grid_sample.py::_border_trilerp,
 // whose anchors and weights this kernel computes itself:
 //     f   = clamp(((coord + 1) * size - 1) / 2, 0, size - 1)  per axis
-//     i   = min(floor(f), size - 2),  t = f - i                (align_corners False)
+//     i   = max(min(floor(f), size - 2), 0),  t = f - i       (align_corners False)
 //     out = lerp_z(lerp_y(lerp_x(v[z][y][x])))                 _lerp_blocks' order
 // volume (B, D, H, W, C) f32, coords (B, N, 3) f32 in the grid convention
 // (x -> W, y -> H, z -> D) -> out (B, N, C) f32. Every product and sum is
@@ -61,11 +61,12 @@ trilinear_fwd_kernel(const float* __restrict__ volume, const float* __restrict__
 }  // namespace
 
 // volume (B, D, H, W, C), coords (B, N, 3), out (B, N, C), all fp32,
-// contiguous, 16-byte aligned; C % 4 == 0 and every side >= 2. Launches on
-// `stream`; returns cudaGetLastError() (0 = launched).
+// contiguous, 16-byte aligned; C % 4 == 0 and every side >= 1 (a side of 1
+// clamps both corners onto it). Launches on `stream`; returns
+// cudaGetLastError() (0 = launched).
 extern "C" int trilinear_fwd(const float* volume, const float* coords, float* out, int B,
                              int N, int D, int H, int W, int C, void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || C % 4 || D < 2 || H < 2 || W < 2)
+  if (B <= 0 || N <= 0 || C <= 0 || C % 4 || D < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   const long long n_items = (long long)B * N * (C / 4);
   const long long blocks = (n_items + THREADS - 1) / THREADS;

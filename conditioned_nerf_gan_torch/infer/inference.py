@@ -117,6 +117,16 @@ def save_checkpoint(path: str | Path, step: int, generator_model: torch.nn.Modul
     return path
 
 
+def refuse_pyramid(z, caller: str) -> None:
+    """Raise on a feature pyramid's ([levels], global) conditioning, which
+    the JAX Inferencer cannot render in blocks (see `render_batched`)."""
+    if isinstance(z, (tuple, list)) and any(isinstance(p, (tuple, list)) for p in z):
+        raise NotImplementedError(
+            f"{caller}: a feature pyramid (PyramidUNet3D) is not served: the JAX "
+            "Inferencer's _tile_z and its z_batched cut cannot take a list of levels "
+            "(a fault of the JAX package, out of scope; ROADMAP C)")
+
+
 class Inferencer:
     def __init__(self, checkpoint_path: str | Path, sampling_mode: str = "val",
                  input_voxel_resolution: int = 64, z_up: bool = False,
@@ -186,8 +196,9 @@ class Inferencer:
     @torch.no_grad()
     def encode(self, sample_batch: dict):
         """{"pcl": (B, P, 6)} -> z (B, z_dim); or {"voxel": (B, D, H, W, C)}
-        NDHWC grids, as ShapeNetDataset yields them -> the U-Net's
-        (feature volume (B, D, H, W, C) contiguous, global (B, z_dim)).
+        NDHWC grids, as ShapeNetDataset yields them -> what the U-Net
+        returns: a (feature volume (B, D, H, W, C) contiguous, global
+        (B, z_dim)) pair, a bare volume, or a ([levels], global) pyramid.
         Arrays or tensors."""
         if self.curriculum["dataset"]["load_pcl"]:
             z, _ = encode_pcl(self.encoder, self._tensor(sample_batch["pcl"]))
@@ -206,11 +217,14 @@ class Inferencer:
         cams = self._tensor(cam2world)
         if not np.isscalar(fov):
             fov = self._tensor(fov)
+        return self.generator(self._on_device(z), cams, cfg, generator=None, fov=fov)
+
+    def _on_device(self, z):
+        """z (an array, a tensor, or a tuple or list of them, nested) on
+        this device."""
         if isinstance(z, (tuple, list)):
-            z = tuple(torch.as_tensor(part, device=self.device) for part in z)
-        else:
-            z = torch.as_tensor(z, device=self.device)
-        return self.generator(z, cams, cfg, generator=None, fov=fov)
+            return type(z)(self._on_device(part) for part in z)
+        return torch.as_tensor(z, device=self.device)
 
     def render_batched(self, z, cams, *, fov=None, chunk: int = 8, img_size=None,
                        num_steps=None, z_batched: bool = False):
@@ -218,7 +232,13 @@ class Inferencer:
 
         `fov` may be a per-view (n,) sweep; `z_batched` means z already has
         batch n (else the single conditioning is repeated per block). A
-        (volume, global) pair is cut or repeated member by member."""
+        (volume, global) pair is cut or repeated member by member, a bare
+        volume as a latent is. A feature pyramid is refused: the JAX
+        Inferencer's `_tile_z` stacks the ragged levels into one array and
+        its `z_batched` cut slices the list of levels, not the batch, so it
+        serves no pyramid, and the port adds no mode the JAX package
+        lacks."""
+        refuse_pyramid(z, "render_batched")
         cams = np.asarray(cams)
         n = cams.shape[0]
         parts = tuple(z) if isinstance(z, (tuple, list)) else (z,)
@@ -517,6 +537,7 @@ class Inferencer:
         global feature ("z"). Needs no valset."""
         z_src = self.encode(self._load_car_cond(src_id))
         z_tgt = self.encode(self._load_car_cond(tgt_id))
+        refuse_pyramid(z_src, "interpolate_latent_codes")
         cams_npz = np.load(Path(self.curriculum["dataset"]["path"]) / src_id / "cameras.npz")
         cam_key = ("world_mat_inv_20" if "world_mat_inv_20" in cams_npz.files
                    else "world_mat_inv_0")

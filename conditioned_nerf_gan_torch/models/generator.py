@@ -11,9 +11,11 @@ noise) is drawn up front for the whole image: the recompute of a
 checkpointed chunk replays the same fine samples and noise, and chunked and
 unchunked renders draw the same numbers. The conditioning `z` is whatever
 the SIREN takes: a latent, or the voxel family's (feature volume, global)
-pair, which every chunk (and its recompute) reads whole; with grad on the
-kernel route the volume goes through `ops.grid_sample.one_volume_grad`
-once a render, so the backward of every chunk's lookups adds into one dV.
+pair, (pyramid, global) pair or bare volume, which every chunk (and its
+recompute) reads whole; with grad on the kernel route each volume, a
+pyramid's every level, goes through `ops.grid_sample.one_volume_grad` once
+a render (`one_grad_per_volume`), so the backward of every chunk's lookups
+adds into one dV a volume.
 `save_siren_outputs` (a measured-neutral training lever of the JAX
 package) is not ported.
 """
@@ -31,6 +33,17 @@ from ..ops.integration import volume_integrate
 from ..ops.rays import distance2depth, get_initial_rays, perturb_points, transform_rays
 from ..ops.sampling import merge_sorted_samples, sample_pdf
 from .siren import make_siren
+
+
+def one_grad_per_volume(z):
+    """z with every feature volume in it (a 5-D tensor: a bare volume, a
+    pair's volume, each level of a pyramid) through `one_volume_grad`; a
+    latent or a global feature as it is."""
+    if isinstance(z, torch.Tensor):
+        return one_volume_grad(z) if z.ndim == 5 else z
+    if isinstance(z, (tuple, list)):
+        return type(z)(one_grad_per_volume(part) for part in z)
+    return z
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +94,8 @@ class ImplicitGenerator3d(nn.Module):
 
     def eval_points(self, points: torch.Tensor, z) -> torch.Tensor:
         """The SIREN field at world points (B, N, 3), contiguous -> (B, N, 4)
-        rgb + sigma (shape extraction). z is a latent or a (volume, global)
-        pair; on the card the points go through the kernels the render
-        uses."""
+        rgb + sigma (shape extraction). z is whatever `forward` takes; on
+        the card the points go through the kernels the render uses."""
         return self.siren(points, z)
 
     def _ray_pipeline(self, z, points, z_vals, rays_d_world, origins,
@@ -128,8 +140,8 @@ class ImplicitGenerator3d(nn.Module):
                 render_rows: int | None = None):
         """Render a batch of images.
 
-        z (B, z_dim), or a (volume (B, D, H, W, C), global (B, z_dim))
-        pair; cam2world (B, 4, 4). `generator` drives stratified
+        z (B, z_dim), a (volume (B, D, H, W, C) or pyramid [levels],
+        global (B, z_dim)) pair, or a bare volume; cam2world (B, 4, 4). `generator` drives stratified
         perturbation, stochastic fine sampling and, where
         `config.density_noise` is set, density noise of std `nerf_noise`;
         None renders deterministically. `fov` overrides config.fov (scalar
@@ -168,10 +180,9 @@ class ImplicitGenerator3d(nn.Module):
                 n_all = 2 * S if config.hierarchical_sample else S
                 noise2 = torch.randn((B, R, n_all, 1), **draw)
         rays = [points, z_vals, rays_d_world, origins, fine_u, noise1, noise2]
-        if isinstance(z, (tuple, list)) and isinstance(z[0], torch.Tensor):
-            # every lookup of the feature volume, in every chunk, adds into
-            # one dV (on the kernel route with grad)
-            z = (one_volume_grad(z[0]), *z[1:])
+        # every lookup of a feature volume, in every chunk, adds into one dV
+        # a volume (on the kernel route with grad)
+        z = one_grad_per_volume(z)
 
         chunks = config.ray_chunks
         if chunks > 1:

@@ -11,8 +11,9 @@ package's (which replicate PyTorch's), drawn from an explicit
                           times `scale` (0.25 on the mapping net's last layer)
 
 Everything here is fp32 unless a layer is given a `compute_dtype`: then
-`FiLMLayer` and `TorchLinear` do what the JAX layers do under the presets'
-bf16 policy, each cast written where the JAX package writes it. Do not wrap
+`FiLMLayer`, `SirenLayer`, `ResSirenBlock` and `TorchLinear` do what the JAX
+layers do under the presets' bf16 policy, each cast written where the JAX
+package writes it. Do not wrap
 any of it in `torch.autocast`: the sin inputs must stay fp32 (freq*x with
 freq ~ 30-45 is far too coarse in bf16).
 """
@@ -186,6 +187,54 @@ class FiLMLayer(nn.Module):
             freq = freq[:, None, :]
             phase_shift = phase_shift[:, None, :]
         return torch.sin(freq * x + phase_shift)
+
+
+class SirenLayer(nn.Module):
+    """sin(W x + b): a SIREN layer without FiLM. Under a `compute_dtype`
+    (the JAX layer's policy) the linear takes `_MixedLinear`'s bf16
+    operands and fp32 sums, the sin (`fast_sin` with `use_fast_sin`) runs
+    in fp32 and the output is stored in compute_dtype."""
+
+    def __init__(self, in_features: int, hidden_dim: int, *,
+                 kernel_init: Init = frequency_init(25),
+                 compute_dtype: torch.dtype | None = None, use_fast_sin: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.linear = TorchLinear(in_features, hidden_dim, kernel_init=kernel_init,
+                                  compute_dtype=compute_dtype, generator=generator)
+        self.compute_dtype = compute_dtype
+        self.sin = fast_sin if use_fast_sin else torch.sin
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.sin(self.linear(x))
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+
+class ResSirenBlock(nn.Module):
+    """sin(x + W_1 sin(W_0 x + b_0) + b_1), both linears `kernel_init`; under
+    a `compute_dtype` each linear as in `SirenLayer`, the inner sin stored
+    in compute_dtype, the sum taken in fp32 (x in compute_dtype promotes)
+    and the output stored in compute_dtype. `linears.0/1` are the flax
+    `TorchLinear_0/1`."""
+
+    def __init__(self, hidden_dim: int, *, kernel_init: Init = frequency_init(25),
+                 compute_dtype: torch.dtype | None = None, use_fast_sin: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.linears = nn.ModuleList([
+            TorchLinear(hidden_dim, hidden_dim, kernel_init=kernel_init,
+                        compute_dtype=compute_dtype, generator=generator)
+            for _ in range(2)])
+        self.compute_dtype = compute_dtype
+        self.sin = fast_sin if use_fast_sin else torch.sin
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        net = self.sin(self.linears[0](x))
+        if dt is not None:
+            net = net.to(dt)
+        y = self.sin(x + self.linears[1](net))
+        return y if dt is None else y.to(dt)
 
 
 class CustomMappingNetwork(nn.Module):

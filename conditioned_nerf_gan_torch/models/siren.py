@@ -2,16 +2,23 @@
 
 The JAX package collapses the reference's 14 SIREN classes into one
 `ConditionedSiren` driven by the `SIREN_SPECS` table. This port carries the
-table and builds the all-FiLM specs of two families:
+table and builds every spec but `TALLSIREN`:
   * points input, conditioned on a global latent z: `SHORTSIREN`, the
     thesis model;
   * features input (per-point features sampled from the U-Net's feature
-    volume, border-mode trilinear, points normalized by 0.6), FiLM from a
-    linear mapping of the U-Net's global feature: `TALLSIREN_FG`,
-    `SHORTSIREN_FG`, `DOUBLESIREN_FG` and `SingleSIREN_dg` (the voxel
-    family; the presets' `*_dg` names are aliases).
-Every other variant raises `NotImplementedError` naming the ROADMAP item
-that ports it.
+    volume, border-mode trilinear, points normalized by 0.6; from a feature
+    pyramid, every level's features concatenated), FiLM from a linear
+    mapping of the U-Net's global feature: `TALLSIREN_FG`, `SHORTSIREN_FG`,
+    `DOUBLESIREN_FG` and `SingleSIREN_dg` (the voxel family; the presets'
+    `*_dg` names are aliases), `TALLSIREN_dgx` (features and xyz) and
+    `SHORTSIREN_FG_Pyrmd` (a pyramid's features);
+  * features input without FiLM: plain SIREN and residual SIREN layers on
+    a bare feature volume, `TALLSIREN_dRes`, `TALLSIREN_dResLong`,
+    `SHORTSIREN_F` and `SHORTSIREN_FRes`.
+All-FiLM stacks of 2 or more layers go to the fused kernels under the
+presets' policy (`routes_to_kernel`); the rest run layer by layer. The
+per-point `pointfeat` mapping of `TALLSIREN` and the legacy variants raise
+`NotImplementedError` naming ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from .layers import (
     CustomMappingNetwork,
     FiLMLayer,
     LinearMapping,
+    ResSirenBlock,
+    SirenLayer,
     TorchLinear,
     first_layer_film_sine_init,
     frequency_init,
@@ -53,11 +62,14 @@ def sample_volume_features(points: torch.Tensor, volume: torch.Tensor) -> torch.
 
 
 def sample_pyramid_features(points: torch.Tensor, pyramid) -> torch.Tensor:
-    """The features input's lookup. A single volume only: a feature pyramid
-    (a list of volumes, from PyramidUNet3D) is not ported yet."""
-    if isinstance(pyramid, (list, tuple)):
-        raise NotImplementedError("feature pyramids are not ported yet (ROADMAP A12)")
-    return sample_volume_features(points, pyramid)
+    """The features input's lookup: every level of a feature pyramid (a list
+    of volumes, PyramidUNet3D's, coarse first) sampled at the points and
+    concatenated in order -> (B, N, sum of C); a single volume is a pyramid
+    of one level. A level's dX is its column slice of the concatenation's."""
+    if not isinstance(pyramid, (list, tuple)):
+        pyramid = [pyramid]
+    feats = [sample_volume_features(points, level) for level in pyramid]
+    return feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,15 +125,18 @@ SIREN_REGISTRY = tuple(SIREN_SPECS) + (
 
 
 def is_ported(spec: SirenSpec) -> bool:
-    """All-FiLM specs with points input and a z mapping, or features input
-    and a linear mapping of the global feature."""
-    return all(k == "film" for k in spec.layers) and (
-        (spec.input, spec.mapping) in (("points", "selectable"), ("features", "linear")))
+    """Every spec but the per-point `pointfeat` mapping's (TALLSIREN)."""
+    return spec.mapping != "pointfeat"
 
 
 class ConditionedSiren(nn.Module):
-    """All-FiLM SIREN: points input conditioned on a global latent z, or
-    sampled-features input conditioned on the U-Net's global feature."""
+    """The SIREN of a spec: points input conditioned on a global latent z,
+    or sampled-features input (a volume's, a pyramid's, or a volume's and
+    the points) conditioned on the U-Net's global feature or on nothing.
+    Layers of each kind keep the flax numbering: `film_layers.i` is
+    FiLMLayer_i, `siren_layers.i` SirenLayer_i, `res_blocks.i`
+    ResSirenBlock_i. `input_dim` is the sampled features' width (the
+    pyramid's summed); `features_points` adds the 3 coordinates."""
 
     def __init__(self, spec: SirenSpec, *, z_dim: int = 100, input_dim: int = 3,
                  hidden_dim: int = 256, output_dim: int = 4, drop_out: float = 0.0,
@@ -131,8 +146,7 @@ class ConditionedSiren(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         if not is_ported(spec):
-            item = "A13" if spec.input == "points" else "A12"
-            raise NotImplementedError(f"{spec} is not ported yet (ROADMAP {item})")
+            raise NotImplementedError(f"{spec} is not ported yet (ROADMAP A13)")
         if spec.mapping == "selectable" and mapping_network != "CustomMappingNetwork":
             raise NotImplementedError(
                 f"mapping network {mapping_network!r} is not ported yet (ROADMAP A13)")
@@ -142,51 +156,83 @@ class ConditionedSiren(nn.Module):
         self.compute_dtype = compute_dtype
         self.use_fast_sin = use_fast_sin
         self.use_kernel = use_kernel
-        n_film = len(spec.layers)
-        if spec.mapping == "linear":
-            self.mapping_network = LinearMapping(z_dim, n_film * hidden_dim * 2,
-                                                 generator=generator)
-        else:
-            self.mapping_network = CustomMappingNetwork(
-                z_dim, 256, n_film * hidden_dim * 2, generator=generator)
+        if spec.mapping is not None:
+            out_dim = len(spec.layers) * hidden_dim * 2
+            if spec.mapping == "linear":
+                self.mapping_network = LinearMapping(z_dim, out_dim, generator=generator)
+            else:
+                self.mapping_network = CustomMappingNetwork(z_dim, 256, out_dim,
+                                                            generator=generator)
         finit = frequency_init(spec.freq_init)
-        self.film_layers = nn.ModuleList([
-            FiLMLayer(input_dim if i == 0 else hidden_dim, hidden_dim,
-                      kernel_init=first_layer_film_sine_init if i == 0 else finit,
-                      compute_dtype=compute_dtype, use_fast_sin=use_fast_sin,
-                      generator=generator)
-            for i in range(n_film)
-        ])
+        first_in = input_dim + 3 if spec.input == "features_points" else input_dim
+        layer = dict(compute_dtype=compute_dtype, use_fast_sin=use_fast_sin,
+                     generator=generator)
+        film, siren, res = [], [], []
+        for i, kind in enumerate(spec.layers):
+            width = first_in if i == 0 else hidden_dim
+            kinit = first_layer_film_sine_init if i == 0 else finit
+            if kind == "film":
+                film.append(FiLMLayer(width, hidden_dim, kernel_init=kinit, **layer))
+            elif kind == "siren":
+                siren.append(SirenLayer(width, hidden_dim, kernel_init=kinit, **layer))
+            elif kind == "res":
+                res.append(ResSirenBlock(hidden_dim, kernel_init=finit, **layer))
+            else:
+                raise ValueError(kind)
+        self.film_layers = nn.ModuleList(film)
+        self.siren_layers = nn.ModuleList(siren)
+        self.res_blocks = nn.ModuleList(res)
         self.final_layer = TorchLinear(hidden_dim, output_dim, kernel_init=finit,
                                        generator=generator)
 
-    def routes_to_kernel(self, freq: torch.Tensor) -> bool:
-        """The JAX package's gate (models/siren.py:222-239): the fused kernel
-        serves only the bf16 + fast-sin policy it was written for."""
+    def routes_to_kernel(self, freq: torch.Tensor | None) -> bool:
+        """The JAX package's gate (models/siren.py:222-239): an all-FiLM stack
+        of 2 or more layers, and the fused kernel serves only the bf16 +
+        fast-sin policy it was written for."""
         return (self.use_kernel
+                and all(k == "film" for k in self.spec.layers)
                 and len(self.spec.layers) >= 2
+                and freq is not None
                 and freq.ndim == 2
                 and self.drop_out == 0
                 and self.use_fast_sin
                 and self.compute_dtype == torch.bfloat16)
 
-    def forward(self, points: torch.Tensor, z) -> torch.Tensor:
-        """points (B, N, 3) world points; z the conditioning: a latent
-        (B, z_dim) for points input, a (volume (B, D, H, W, C), global
-        (B, z_dim)) pair for features input (the JAX package's resolution
-        of the tuple, models/siren.py:161-175) -> (B, N, 4). Past the gate,
-        CUDA inputs go to the forward kernel, and with grad enabled its
-        backward is the backward kernel (`FilmSirenMLP`)."""
+    def _inputs(self, points: torch.Tensor, z):
+        """The first layer's input and the mapping's source, as the JAX
+        package resolves z (models/siren.py:161-191): a (volume or pyramid,
+        global) pair or a bare volume for features input, a (pyramid,
+        global) pair for pyramid input, a latent (or a pair's second member)
+        for points input."""
+        spec = self.spec
         pair = isinstance(z, (tuple, list))
-        if self.spec.input == "features":
+        if spec.input in ("features", "features_points"):
             volume, global_feature = (z[0], z[1]) if pair else (z, None)
-            if global_feature is None:
-                raise ValueError(f"{self.spec} is conditioned on a (volume, global) pair")
             x = sample_pyramid_features(points, volume)
+            if spec.input == "features_points":
+                x = torch.cat([x, points], dim=-1)
+        elif spec.input == "pyramid":
+            pyramid, global_feature = z
+            x = sample_pyramid_features(points, pyramid)
         else:
             x, global_feature = points, (z[1] if pair else z)
-        freq, phase = self.mapping_network(global_feature)
-        freq = freq * 15.0 + 30.0
+        if spec.mapping is not None and global_feature is None:
+            raise ValueError(f"{spec} is conditioned on a (volume, global) pair")
+        return x, global_feature
+
+    def forward(self, points: torch.Tensor, z) -> torch.Tensor:
+        """points (B, N, 3) world points; z the conditioning: a latent
+        (B, z_dim) for points input; for features input a (volume (B, D, H,
+        W, C) or pyramid [levels], global (B, z_dim)) pair, or a bare volume
+        where the spec has no mapping; a (pyramid, global) pair for pyramid
+        input -> (B, N, 4). Past the gate, CUDA inputs go to the forward
+        kernel, and with grad enabled its backward is the backward kernel
+        (`FilmSirenMLP`)."""
+        x, global_feature = self._inputs(points, z)
+        freq = phase = None
+        if self.spec.mapping is not None:
+            freq, phase = self.mapping_network(global_feature)
+            freq = freq * 15.0 + 30.0
         if self.routes_to_kernel(freq):
             lins = [layer.linear for layer in self.film_layers]
             rgb_sigma = film_siren_mlp(
@@ -198,8 +244,14 @@ class ConditionedSiren(nn.Module):
             )
         else:
             H = self.hidden_dim
-            for i, layer in enumerate(self.film_layers):
-                x = layer(x, freq[..., i * H:(i + 1) * H], phase[..., i * H:(i + 1) * H])
+            layers = {"film": iter(self.film_layers), "siren": iter(self.siren_layers),
+                      "res": iter(self.res_blocks)}
+            for i, kind in enumerate(self.spec.layers):
+                layer = next(layers[kind])
+                if kind == "film":
+                    x = layer(x, freq[..., i * H:(i + 1) * H], phase[..., i * H:(i + 1) * H])
+                else:
+                    x = layer(x)
             # the head is fp32, as in JAX, on the compute_dtype activations
             rgb_sigma = self.final_layer(x.float())
         if self.spec.output == "sigmoid_rgb":
@@ -215,7 +267,8 @@ def make_siren(siren_type: str, *, z_dim: int = 100, input_dim: int = 3,
                **_unused) -> nn.Module:
     """Build a SIREN variant by reference class name (aliases resolved).
     `z_dim` is the mapping's input: the latent, or the U-Net's global
-    feature; `input_dim` the first layer's: 3, or the feature volume's C."""
+    feature; `input_dim` the sampled features' width: 3 for points input,
+    the feature volume's C, or the pyramid's summed C."""
     siren_type = resolve_siren_alias(siren_type)
     if siren_type in SIREN_SPECS:
         return ConditionedSiren(

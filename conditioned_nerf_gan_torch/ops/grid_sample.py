@@ -8,8 +8,10 @@ convention: coords[..., 0] = x -> W, 1 = y -> H, 2 = z -> D.
 
   * `border_trilerp_reference`: the JAX border-mode math in plain torch
     (`_unnormalize`, `_anchor_fractions` with the anchor clamped to
-    size - 2, the 8 corners combined in `_lerp_blocks`' order). What the
-    wrapper takes for CPU tensors, and the comparator for the kernel.
+    size - 2, the 8 corners combined in `_lerp_blocks`' order; on a side of
+    1 both corners of that axis are its one voxel, as the JAX generic
+    path's clamped corners are). What the wrapper takes for CPU tensors,
+    and the comparator for the kernel.
   * `border_trilerp_vjp_reference`: its VJP in plain torch: dcoords as the
     JAX `_expanded_bwd` computes them, dV as an fp32 `index_add_` of the
     weighted corner rows. What the backward takes for CPU tensors, and the
@@ -46,9 +48,10 @@ def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
 def _anchor_fractions(f: torch.Tensor, size: int):
     """Border clamp, block anchor <= size - 2 and its fraction in [0, 1]: at
     the high border the anchor shifts down one cell and t = 1 selects the
-    border voxel, as grid_sample's clipped x1 with t = 0 does."""
+    border voxel, as grid_sample's clipped x1 with t = 0 does. On a side of
+    1 the anchor and the fraction are 0."""
     f = f.clamp(0.0, size - 1)
-    i = torch.floor(f).long().clamp(max=size - 2)
+    i = torch.floor(f).long().clamp(0, max(size - 2, 0))
     return i, f - i
 
 
@@ -59,7 +62,8 @@ def _lerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 def _corner_rows(volume: torch.Tensor, coords: torch.Tensor):
     """Per axis (x, y, z) the unnormalized position, the anchor and the
     fraction (B, N); and the flat row (B, N) of each corner (dz, dy, dx) of a
-    (B * D * H * W, C) view of the volume."""
+    (B * D * H * W, C) view of the volume (on a side of 1 both corners of
+    the axis are its one voxel)."""
     B, D, H, W, _ = volume.shape
     axes = []
     for k, size in enumerate((W, H, D)):
@@ -67,9 +71,10 @@ def _corner_rows(volume: torch.Tensor, coords: torch.Tensor):
         axes.append((f, *_anchor_fractions(f, size)))
     (_, ix, _), (_, iy, _), (_, iz, _) = axes
     base = ((torch.arange(B, device=volume.device)[:, None] * D + iz) * H + iy) * W + ix
+    sz, sy, sx = (H * W if D > 1 else 0), (W if H > 1 else 0), (1 if W > 1 else 0)
 
     def row(dz, dy, dx):
-        return base + (dz * H + dy) * W + dx
+        return base + dz * sz + dy * sy + dx * sx
 
     return axes, row
 
@@ -245,8 +250,7 @@ def trilinear_point_features(volume: torch.Tensor, coords: torch.Tensor, *,
 
     volume (B, D, H, W, C) channel-last; coords (B, N, 3) normalized to
     [-1, 1] in the grid convention (x -> W, y -> H, z -> D) -> (B, N, C).
-    Border padding with align_corners=False, sides >= 2: the voxel family's
-    lookup. CUDA tensors go to the hand-written kernel (fp32, C % 4 == 0,
+    Border padding with align_corners=False: the voxel family's lookup. CUDA tensors go to the hand-written kernel (fp32, C % 4 == 0,
     contiguous), through `TrilinearSample` when an input needs grad (a
     volume that needs grad through `one_volume_grad` first, unless the
     caller's render put it through once for all its lookups); CPU tensors
@@ -256,10 +260,9 @@ def trilinear_point_features(volume: torch.Tensor, coords: torch.Tensor, *,
         raise NotImplementedError(
             f"padding_mode={padding_mode!r}, align_corners={align_corners} is not "
             "ported yet (the EmbeddingPiGAN lookup, ROADMAP A13)")
-    if volume.ndim != 5 or min(volume.shape[1:4]) < 2:
-        raise NotImplementedError(
-            f"volume of shape {tuple(volume.shape)}: the port samples (B, D, H, W, C) "
-            "volumes with every side >= 2 (ROADMAP A12)")
+    if volume.ndim != 5 or min(volume.shape[1:4]) < 1:
+        raise ValueError(f"volume of shape {tuple(volume.shape)}: the lookup samples "
+                         "(B, D, H, W, C) volumes")
     if not _takes_kernels(volume):
         return border_trilerp_reference(volume, coords)
     if torch.is_grad_enabled() and (volume.requires_grad or coords.requires_grad):

@@ -50,20 +50,25 @@ _S7 = -1.4495299408e-04
 
 # shapes the CUDA kernels are compiled for: csrc/film_siren_fwd.cu and
 # csrc/film_siren_bwd.cu each have an instance for each input width (xyz
-# points; sampled U-Net features) and take 2 to 8 layers
+# points; sampled U-Net features; features and xyz, TALLSIREN_dgx; the
+# features of a PyramidUNet3D's three levels) and take 2 to 8 layers
 KERNEL_HIDDEN = 256
 KERNEL_IN = 3
-KERNEL_INS = (3, 32)
+KERNEL_INS = (3, 32, 35, 224)
 KERNEL_LAYERS = (2, 8)
 KERNEL_OUT = 4
 # csrc/film_siren_bwd.cu: points per sweep tile (the scratch is padded to a
-# multiple of it), the columns of its point/cotangent scratch (one 128-byte
-# row a point), the fewest points per weight-grad segment, and the weight-grad
-# work items to aim for (about three per SM of an H100)
+# multiple of it), the fewest points per weight-grad segment, and the
+# weight-grad work items to aim for (about three per SM of an H100)
 BWD_TILE = 128
-BWD_XG_COLS = 64
 BWD_SEGMENT = 4096
 BWD_ITEMS = 396
+
+
+def bwd_xg_cols(din: int) -> int:
+    """Columns of csrc/film_siren_bwd.cu's point/cotangent scratch: x, the
+    cotangent's 4 columns, zeros to a whole number of 64-column blocks."""
+    return -(-(din + KERNEL_OUT) // 64) * 64
 
 
 def sin7(x: torch.Tensor) -> torch.Tensor:
@@ -265,6 +270,15 @@ def _fold_for_kernel(freq, phase, w0, b0, ws, bs):
     return w0f.contiguous(), c, wsf.contiguous()
 
 
+def _w0f_t(w0f: torch.Tensor) -> torch.Tensor:
+    """W0f^T (B, H, Din) as the kernels' tensor map reads it: K-major, its
+    rows zero-padded to a multiple of 8 columns (16 bytes, the TMA's row
+    pitch; Din 35 -> 40, a copy of 20 KB a batch element)."""
+    t = w0f.transpose(-1, -2)
+    pad = -t.shape[-1] % 8
+    return (torch.nn.functional.pad(t, (0, pad)) if pad else t).contiguous()
+
+
 def _c_function(library, symbol, n_pointers, n_ints):
     from .build import load_library
 
@@ -281,11 +295,11 @@ def _forward_kernel(points, freq, phase, w0, b0, ws, bs, wf, bf):
     fn = _c_function("film_siren_fwd", "film_siren_fwd", 7, 4)
     w0f, c, wsf = _fold_for_kernel(freq, phase, w0, b0, ws, bs)
     B, N, din = points.shape
-    # wgmma's B operand is K-major: the trunk weights, and at Din 32 the
+    # wgmma's B operand is K-major: the trunk weights, and past Din 3 the
     # first layer's, go in transposed (B, .., H_out, H_in)
     wsf_t = wsf.transpose(-1, -2).contiguous()
     if din != KERNEL_IN:
-        w0f = w0f.transpose(-1, -2).contiguous()
+        w0f = _w0f_t(w0f)
     wf16 = wf.to(torch.bfloat16).contiguous()
     bf = bf.contiguous()
     out = torch.empty(B, N, KERNEL_OUT, dtype=torch.float32, device=points.device)
@@ -321,8 +335,8 @@ def film_siren_mlp(points, freq, phase, w0, b0, ws, bs, wf, bf):
     """Fused FiLM-SIREN forward -> (B, N, 4) fp32.
 
     CUDA tensors go to the hand-written kernel (bf16 operands, fp32
-    accumulation, sin7 — the math of `film_siren_mlp_folded`; points of 3
-    or 32 features, 2 to 8 layers of 256), through
+    accumulation, sin7 — the math of `film_siren_mlp_folded`; points of 3,
+    32, 35 or 224 features, 2 to 8 layers of 256), through
     `FilmSirenMLP` when an input needs grad; anything the kernel does not
     take raises. CPU tensors take the fp32 reference under plain autograd,
     as the JAX wrapper does off the TPU. `film_siren_mlp.launches` counts
@@ -351,7 +365,8 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
     and the bf16 h_l / dpre_l, then the folded weight grads summed over
     points in a fixed order (deterministic), then `unfold_film_grads`. The
     cotangent g (B, N, 4) may be any strided view; it is made contiguous
-    here. Points of 3 or 32 features, 2 to 8 layers of 256. CPU tensors take
+    here. Points of 3, 32, 35 or 224 features, 2 to 8 layers of 256. CPU
+    tensors take
     `film_siren_mlp_folded_vjp`. `film_siren_mlp_bwd.launches` counts
     kernel launches.
     """
@@ -370,18 +385,22 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
                          f"the kernel takes {(B, N, KERNEL_OUT)}")
     fn = _c_function("film_siren_bwd", "film_siren_bwd", 14, 5)
     w0f, c, wsf = _fold_for_kernel(freq, phase, w0, b0, ws, bs)
-    # the recompute's K-major weights (at Din 32 layer 0's too; dX reads
-    # W0f itself)
+    # the recompute's K-major weights (past Din 3 layer 0's too); dX reads
+    # W0f itself, at Din 35 zero-padded to 64 rows (the product's N)
     wsf_t = wsf.transpose(-1, -2).contiguous()
-    w0f_t = w0f.transpose(-1, -2).contiguous() if din != KERNEL_IN else w0f
+    w0f_t = _w0f_t(w0f) if din != KERNEL_IN else w0f
+    if din == 35:
+        w0f = torch.nn.functional.pad(w0f, (0, 0, 0, 64 - din)).contiguous()
     wf16 = wf.to(torch.bfloat16).contiguous()
     g = g.contiguous()
     L = c.shape[1]
     H, C = KERNEL_HIDDEN, KERNEL_OUT
     n_pad = -(-N // BWD_TILE) * BWD_TILE
     # weight-grad segments: >= BWD_SEGMENT points each, and enough of them
-    # for BWD_ITEMS work items (2L per batch element and segment)
-    n_seg = min(-(-n_pad // BWD_SEGMENT), -(-BWD_ITEMS // (2 * L * B)))
+    # for BWD_ITEMS work items (2L per batch element and segment, one more
+    # at Din 224: dW0f's second 128-row tile)
+    items = 2 * (L - 1) + -(-din // 128) + 1
+    n_seg = min(-(-n_pad // BWD_SEGMENT), -(-BWD_ITEMS // (items * B)))
     seg = -(-n_pad // (n_seg * BWD_TILE)) * BWD_TILE
     n_seg = -(-n_pad // seg)
     dev = points.device
@@ -390,7 +409,7 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
     # bf16-rounded points and cotangent in one zero-padded row a point
     hbuf = torch.empty(B, L, n_pad, H, **bf16)
     pbuf = torch.empty(B, L, n_pad, H, **bf16)
-    xg = torch.empty(B, n_pad, BWD_XG_COLS, **bf16)
+    xg = torch.empty(B, n_pad, bwd_xg_cols(din), **bf16)
     dpoints = torch.empty(B, N, din, dtype=torch.float32, device=dev)
     # the folded grads of every batch element in one block, in the kernel's
     # order; with several segments, one partial block per segment

@@ -37,9 +37,9 @@ def _check_kernel_inputs(volume: torch.Tensor, coords: torch.Tensor,
     if coords.ndim != 3 or coords.shape[0] != B or coords.shape[2] != 3:
         raise ValueError(f"{name}: coords have shape {tuple(coords.shape)}, the "
                          f"kernel takes ({B}, N, 3)")
-    if C % 4 or min(D, H, W) < 2:
+    if C % 4 or min(D, H, W) < 1:
         raise ValueError(f"{name}: volume (B, D, H, W, C) = {tuple(volume.shape)}; "
-                         "the kernel takes C % 4 == 0 and sides >= 2")
+                         "the kernel takes C % 4 == 0 and sides >= 1")
     if volume.data_ptr() % 16:
         raise ValueError(f"{name}: volume must be 16-byte aligned (float4 rows)")
     if B * coords.shape[1] * (C // 4) >= 256 * (2 ** 31 - 1):

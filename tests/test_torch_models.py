@@ -144,7 +144,7 @@ def test_init_schemes_are_seeded_and_scaled():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("SHORTSIREN_FG_Pyrmd", "A12"), ("TALLSIREN_dRes", "A12"), ("TALLSIREN", "A13"),
+    ("EmbeddingPiGAN256", "A13"), ("TALLSIREN", "pointfeat"), ("TALLSIREN", "A13"),
     ("SPATIALSIREN" + "BASELINE", "A13"), ("EmbeddingPiGAN128", "A13"),
 ])
 def test_unported_sirens_name_their_roadmap_item(name, item):

@@ -87,7 +87,10 @@ def test_unet3d_matches_jax():
 
 def test_unet3d_layout_and_unported_variants():
     """Encoder 0's first GroupNorm takes 1 group over the 4 input channels
-    and its conv has no bias under the norm; mid width max(f // 2, c_in)."""
+    and its conv has no bias under the norm; mid width max(f // 2, c_in).
+    The other variants build: PyramidUNet3D without a final conv,
+    ResidualUNet3D with transposed convs up, and any order of the DSL
+    (their parity: tests/test_torch_voxel_variants.py)."""
     enc = make_unet(**UNET)
     first = enc.encoders[0].conv1
     assert first.norm.num_groups == 1 and first.norm.num_channels == 4
@@ -95,13 +98,11 @@ def test_unet3d_layout_and_unported_variants():
     assert enc.encoders[1].conv1.norm.num_groups == 8
     assert enc.decoders[0].conv1.conv.weight.shape == (16, 48, 3, 3, 3)
     assert enc.final_conv.bias is not None
-    for name in ("PyramidUNet3D", "ResidualUNet3D"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            make_unet(name, **UNET)
+    assert not hasattr(make_unet("PyramidUNet3D", **UNET), "final_conv")
+    assert len(make_unet("ResidualUNet3D", **UNET).upconvs) == UNET["num_levels"] - 1
     with pytest.raises(ValueError, match="Unknown"):
         make_unet("NoSuchUNet", **UNET)
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_unet(**UNET, layer_order="cge")
+    assert make_unet(**UNET, layer_order="cge").encoders[0].conv1.elu is not None
 
 
 def _trilerp_inputs(seed, B=2, D=5, Hs=7, W=9, C=6, N=64):
@@ -155,8 +156,10 @@ def test_trilinear_wrapper_on_cpu_and_refusals():
         tgs.trilinear_point_features(vol, coords, padding_mode="zeros")
     with pytest.raises(NotImplementedError, match="A13"):
         tgs.trilinear_point_features(vol, coords, align_corners=True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tgs.trilinear_point_features(vol[:, :1], coords)
+    # a side of 1 takes the plain version too (both corners on its voxel)
+    thin = vol[:, :1].contiguous()
+    torch.testing.assert_close(tgs.trilinear_point_features(thin, coords),
+                               tgs.border_trilerp_reference(thin, coords), rtol=0, atol=0)
     with pytest.raises(ValueError, match="no kernel"):
         tgs.trilinear_point_features(vol.to("meta"), coords.to("meta"))
 
@@ -199,20 +202,26 @@ def test_fg_siren_matches_jax(name, thesis):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4)
 
 
-@pytest.mark.parametrize("name", [
-    "TALLSIREN_dgx", "TALLSIREN_dResLong", "SHORTSIREN_F", "SHORTSIREN_FRes",
-])
-def test_unported_feature_sirens_name_a12(name):
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_siren(name)
-
-
 def test_fg_siren_refuses_pyramids_and_bare_volumes():
-    siren = make_siren("TALLSIREN_dg", z_dim=GLOBAL, input_dim=FEAT, hidden_dim=H)
+    """An FG SIREN samples a pyramid's every level and concatenates them (its
+    first layer as wide as their sum): on a pyramid of one volume twice it
+    equals the SIREN of that volume whose first weight is the sum of the
+    two halves (fp32 sums in another order, observed 6e-8). It still
+    refuses a bare volume: its FiLM needs the global feature."""
+    siren = make_siren("TALLSIREN_dg", z_dim=GLOBAL, input_dim=2 * FEAT, hidden_dim=H)
+    narrow = make_siren("TALLSIREN_dg", z_dim=GLOBAL, input_dim=FEAT, hidden_dim=H)
+    state = siren.state_dict()
+    w = state["film_layers.0.linear.weight"]
+    state["film_layers.0.linear.weight"] = w[:, :FEAT] + w[:, FEAT:]
+    narrow.load_state_dict(state)
     vol, glob = (torch.from_numpy(a) for a in _conditioning(seed=6))
-    pts = torch.zeros(2, 5, 3)
-    with pytest.raises(NotImplementedError, match="A12"):
-        siren(pts, ([vol, vol], glob))
+    pts = torch.from_numpy(np.random.default_rng(6).uniform(-0.6, 0.6, (2, 5, 3))
+                           .astype(np.float32))
+    with torch.no_grad():
+        out = siren(pts, ([vol, vol], glob))
+        ref = narrow(pts, (vol, glob))
+    assert out.shape == (2, 5, 4)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="pair"):
         siren(pts, vol)
 
