@@ -162,15 +162,27 @@ Refuses to run without CUDA (exit 1). Otherwise:
      through the Inferencer, each against the plain render; and the train
      CLI on the pyramid preset across its first milestone on phase 10's
      fixture, with sample grids, val losses and one Trainer.evaluate.
+ 14. the remaining models on the card: at full width, as phase 13 runs
+     its paths, the stage-2 steps of `cond_nearest` (the InputCat D on the
+     conditioning views, K1/K2 at Din 32 / L 8), `proj_random` (the
+     Projection D, its ResNet18 on 12 views of 256^2) and `indirect_dis`
+     (TALLSIREN's per-point mapping: no K1/K2, K5 and the trilinear
+     backward on its lookups, batch_split 12); the train CLI on
+     `cond_nearest` across its first milestone on phase 10's fixture, the
+     loader's views in every step; the Encoder, Strided, CCS and
+     CCSEncoder discriminators at 128^2 (heads, R1, grads) and a render of
+     SPATIALSIRENBASELINE and EmbeddingPiGAN128/256 (2 views at 128^2),
+     each against the same module on the CPU.
 Phases 2, 5, 7, 9, 10 and 11 each print a precision line: which nets run
 the bf16 policy and the process's TF32 and bf16-reduction flags.
 Prints one JSON line of kernel results (each kernel's time beside its plain
 version's, the least time the card could take for the same work, and the
 one PyTorch call that computes the same function where there is one; K1 and
 K2 and the trilinear kernels at the training chunk, the other shapes under
-`ms_by_shape`, phase 13's shapes among them), then
+`ms_by_shape`, phase 13's shapes among them; the launches of every path,
+phase 14's among them), then
 the last line {"ok": true, "device": {...}}. Any failed check raises
-(non-zero exit); checks of phases 1b and 4-13 raise after phase 13, so one
+(non-zero exit); checks of phases 1b and 4-14 raise after phase 14, so one
 run reports them all.
 """
 
@@ -2008,8 +2020,9 @@ def design_launches(cfg, levels: int = 1, film: bool = True) -> tuple[int, int, 
 def voxel_design(meta: dict) -> tuple[int, bool]:
     """(feature lookups a SIREN call makes, whether the SIREN runs on K1 and
     K2) of a curriculum's metadata: a PyramidUNet3D's levels are its
-    num_levels - 1 decoder outputs; the kernel gate takes an all-FiLM stack
-    of 2 or more layers under the bf16 + fast_sin policy."""
+    num_levels - 1 decoder outputs (TALLSIREN's one lookup feeds its
+    mapping); the kernel gate takes an all-FiLM stack of 2 or more layers
+    with freq per batch element under the bf16 + fast_sin policy."""
     from conditioned_nerf_gan_torch.config.presets import resolve_siren_alias
     from conditioned_nerf_gan_torch.models.siren import SIREN_SPECS
 
@@ -2017,6 +2030,7 @@ def voxel_design(meta: dict) -> tuple[int, bool]:
     unet = meta.get("unet") or {}
     levels = unet.get("num_levels", 4) - 1 if unet.get("type") == "PyramidUNet3D" else 1
     film = (all(k == "film" for k in spec.layers) and len(spec.layers) >= 2
+            and spec.mapping != "pointfeat"  # freq per point (TALLSIREN): the gate's ndim 2
             and bool(meta.get("use_pallas")) and bool(meta.get("use_fast_sin"))
             and meta.get("compute_dtype") == "bfloat16")
     return levels, film
@@ -3106,7 +3120,7 @@ def with_overrides(preset: str, **changes) -> dict:
 
 
 def phase13_step(label: str, preset: str, device, failures: list, overrides=None,
-                 dv_ops: bool = False, profile: bool = False) -> tuple:
+                 dv_ops: bool = False, profile: bool = False, phase_no: int = 13) -> tuple:
     """One voxel-family path's stage-2 train step at full width
     (`build_stage_bench`, step DG_TRAIN_STEP): a warm-up and PATH_TIMED_STEPS
     timed steps (s/step, peak memory, every kernel's launches against the
@@ -3127,7 +3141,7 @@ def phase13_step(label: str, preset: str, device, failures: list, overrides=None
     )
 
     counters = kernel_counters()
-    phase = f"phase 13 [{label}]"
+    phase = f"phase {phase_no} [{label}]"
     t0 = time.perf_counter()
     bench = build_stage_bench(preset, stage=2, step=DG_TRAIN_STEP, meta_overrides=overrides)
     cfg, meta = bench.config, bench.meta
@@ -3146,7 +3160,9 @@ def phase13_step(label: str, preset: str, device, failures: list, overrides=None
           f"{tuple(batch['voxel'].shape)} (global {meta['unet']['return_global']}), "
           f"{meta['generator']['siren_type']} (kernels: {film}, {levels} lookups a call), "
           f"{r.img_size}^2, {r.num_steps}+{r.num_steps} samples, ray_chunks {r.ray_chunks}, "
-          f"discriminator {cfg.enable_discriminator}; design launches per step K1 {design[0]}, "
+          f"discriminator {meta['discriminator'] if cfg.enable_discriminator else None}"
+          + (f" (cond views {tuple(batch['cond'].shape)})" if "cond" in batch else "")
+          + f"; design launches per step K1 {design[0]}, "
           f"K2 {design[1]}, trilinear {design[2]}, trilinear backward {design[3]}; set-up "
           f"{time.perf_counter() - t0:.2f} s")
     before = {name: [p.detach().clone() for p in net.parameters()]
@@ -3402,7 +3418,9 @@ def phase13_voxel_variants(device, dataset: Path, work: Path, build_dir: Path,
     # (label, preset, meta_overrides, count the ops on dV's shapes, profile a step)
     paths = [
         ("pyramid_train", PYRAMID, None, True, True),
-        ("dres_train", "dRes", None, True, True),
+        # dRes's profile (busy 0.992, ~6.5 s of unfused elementwise ops,
+        # PERF.md §5) is not repeated: the script's time goes to phase 14
+        ("dres_train", "dRes", None, True, False),
         ("residual_train", "dg", with_overrides("dg", unet={"type": "ResidualUNet3D"}), False,
          False),
         ("dgx_train", "dg", with_overrides("dg", generator={"siren_type": "TALLSIREN_dgx"}),
@@ -3422,6 +3440,227 @@ def phase13_voxel_variants(device, dataset: Path, work: Path, build_dir: Path,
     out["pyramid_trainer"] = phase13_pyramid_trainer(device, dataset, work, failures)
     print(f"phase 13 [pyramid trainer]: {time.perf_counter() - t1:.2f} s")
     print(f"phase 13: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+# (label, preset, profile one step). indirect_dis's profile (its ~23 s
+# step: 0.94 busy, ~15 s elementwise, ~5.6 s fp32 GEMMs, PERF.md §5) takes
+# ~90 s of the script's time, most of it reading 346k device events: set
+# True to take it again
+COND_PATHS = (("cond_nearest", "cond_nearest", False), ("proj_random", "proj_random", False),
+              ("indirect_dis", "indirect_dis", False))
+COND_CLI = "cond_nearest"
+COND_STAGE_STEPS = 2  # the CLI run: stages 0 and 1, 2 steps each
+LEGACY_DS = ("ProgressiveEncoderDiscriminator", "StridedDiscriminator", "CCSDiscriminator",
+             "CCSEncoderDiscriminator")
+LEGACY_D_BATCH = 4
+LEGACY_SIRENS = ("SPATIALSIRENBASELINE", "EmbeddingPiGAN128", "EmbeddingPiGAN256")
+LEGACY_VIEWS = 2
+LEGACY_CPU_ROWS = 4  # rows of each 128^2 view rendered again on the CPU
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase14_cond_trainer(device, dataset: Path, work: Path, failures: list) -> tuple:
+    """The train CLI on `cond_nearest` across its first milestone
+    (COND_STAGE_STEPS steps at stages 0 and 1) on phase 10's fixture: the
+    InputCat D reads the loader's nearest views; sample grids and val
+    losses at every second step; each stage's s/step, peak memory and every
+    kernel's launches a step against the design. Returns the launches over
+    the run and the stages."""
+    from conditioned_nerf_gan_torch import train
+    from conditioned_nerf_gan_torch.config import curriculum_to_json
+
+    counters = kernel_counters()
+    run = work / "cond"
+    run.mkdir()
+    cur = compressed_curriculum(COND_CLI, COND_STAGE_STEPS, dataset)
+    curriculum_to_json(cur, run / "curriculum.json")
+    milestones = sorted(k for k in cur if isinstance(k, int))
+    meta = dict(cur, **cur[milestones[0]])
+    levels, film = voxel_design(meta)
+    stop = 2 * COND_STAGE_STEPS - 1
+    seen = []
+    from conditioned_nerf_gan_torch.training import trainer as trainer_module
+
+    make_step = trainer_module.make_train_step
+
+    def spying_make_step(config):
+        step = make_step(config)
+
+        def spied(state, batch, *args):
+            seen.append(tuple(batch["cond"].shape) if "cond" in batch else None)
+            return step(state, batch, *args)
+
+        return spied
+
+    trainer_module.make_train_step = spying_make_step
+    take_counts(counters)
+    t0 = time.perf_counter()
+    try:
+        with TrainerProbe(counters,
+                          design=lambda cfg: design_launches(cfg, levels, film)) as probe:
+            rc = train.main(["-o", str(run), "--stop_step", str(stop), "-p", "1",
+                             "-s", str(COND_STAGE_STEPS), "-e", "1000000",
+                             "--device", str(device)])
+    finally:
+        trainer_module.make_train_step = make_step
+    counts = take_counts(counters)
+    seconds = time.perf_counter() - t0
+    trainer = probe.trainers[0]
+    stages = print_stages("phase 14 [cond trainer]", probe.steps, milestones, failures,
+                          names=("K1", "K2", "trilinear", "trilinear backward"))
+    grids = sorted(p.name for p in (run / "samples" / "valview").glob("*.png"))
+    val = trainer.histories["photometry_losses_val"]
+    losses = [v for k in ("photometry_losses", "generator_losses", "discriminator_losses")
+              for v in trainer.histories[k]]
+    print(f"phase 14 [cond trainer]: {COND_CLI} milestones {milestones[:2]}, rc {rc} in "
+          f"{seconds:.2f} s; D {type(trainer.state.discriminator).__name__}; the cond views "
+          f"each step took (from the loader) {seen}; launches over the run (steps, samples, "
+          f"val losses) {counts}; valview grids {grids}; val losses {val}")
+    sizes = [s["img"] for s in stages]
+    views_ok = len(seen) == stop + 1 and all(
+        v is not None and v[1:] == (img, img, 3) for v, img in
+        zip(seen, [s["img"] for s in probe.steps]))
+    if (rc != 0 or sizes != [32, 64] or not grids or not val or not views_ok
+            or len(losses) != 3 * (stop + 1) or not np.all(np.isfinite(losses))):
+        failures.append(f"phase 14 [cond trainer]: the run (rc {rc}) lacks a part: stages "
+                        f"{sizes}, grids {grids}, val {val}, cond views {seen}, losses "
+                        f"{len(losses)}")
+    del probe, trainer
+    torch.cuda.empty_cache()
+    return counts, stages
+
+
+def phase14_legacy_discriminators(device, failures: list) -> dict:
+    """Each discriminator new to the card's paths (Encoder, Strided, CCS,
+    CCSEncoder) at 128^2 in fp32: the heads, R1 and the grads of the
+    logits' sum plus R1, on the card against the same module on the CPU,
+    each by L2 within phase 5's D bound (STEP_GRAD_TOL). Returns the
+    readings."""
+    from conditioned_nerf_gan_torch.models import make_discriminator
+    from conditioned_nerf_gan_torch.training import r1_penalty
+
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.uniform(-1, 1, (LEGACY_D_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3))
+                         .astype(np.float32))
+    out = {}
+    for name in LEGACY_DS:
+        D = make_discriminator(name, generator=torch.Generator().manual_seed(14))
+        runs = {}
+        for dev in ("cpu", device):
+            net = copy.deepcopy(D).to(dev)
+            real = x.to(dev).requires_grad_()
+            heads = net(real, 0.5)
+            heads = heads if isinstance(heads, tuple) else (heads,)
+            r1 = r1_penalty(heads, real)
+            (heads[0].sum() + r1).backward()
+            runs[str(dev)] = ([h for h in heads if h is not None], r1,
+                              torch.cat([p.grad.flatten() for p in net.parameters()
+                                         if p.grad is not None]))
+        (h_c, r1_c, g_c), (h_g, r1_g, g_g) = runs["cpu"], runs[str(device)]
+        readings = dict(heads=max(rel_l2(a, b) for a, b in zip(h_g, h_c)),
+                        r1=abs(r1_g.item() - r1_c.item()) / abs(r1_c.item()),
+                        grads=rel_l2(g_g, g_c))
+        out[name] = readings
+        print(f"phase 14 [{name}]: {LEGACY_D_BATCH} images at {IMAGE_SIZE}^2, fp32, card "
+              f"against CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+              + f" (bound {STEP_GRAD_TOL}); heads {[tuple(h.shape) for h in h_g]}")
+        if not all(v <= STEP_GRAD_TOL for v in readings.values()):
+            failures.append(f"phase 14 [{name}]: the card disagrees with the CPU: {readings}")
+    return out
+
+
+def phase14_legacy_sirens(device, failures: list) -> dict:
+    """SPATIALSIRENBASELINE and EmbeddingPiGAN128/256 through
+    ImplicitGenerator3d: one no-grad render of LEGACY_VIEWS views at
+    IMAGE_SIZE^2 on the card (the thesis preset's render settings,
+    deterministic, fp32, sigma's bias raised by DENSE_SIGMA_BIAS so the
+    views are not empty): ms, output finite and in range, no kernel launch
+    (these SIRENs take none, as in JAX), and the first LEGACY_CPU_ROWS rows
+    of each view against the same rows rendered on the CPU (phase 7's
+    render bounds). Returns the ms."""
+    from conditioned_nerf_gan_torch.infer import load_metadata
+    from conditioned_nerf_gan_torch.models import ImplicitGenerator3d, RenderConfig
+    from conditioned_nerf_gan_torch.ops.rays import (
+        create_cam2world_matrix,
+        sample_camera_positions,
+    )
+
+    counters = kernel_counters()
+    meta = load_metadata(THESIS_STEP)
+    cfg = RenderConfig.from_metadata(meta, perturb=False, img_size=IMAGE_SIZE)
+    rng = np.random.default_rng(15)
+    z = torch.from_numpy(rng.normal(size=(LEGACY_VIEWS, 256)).astype(np.float32))
+    cams = create_cam2world_matrix(sample_camera_positions(
+        LEGACY_VIEWS, generator=torch.Generator().manual_seed(16),
+        cam_r_start=meta["cam_r_start"], cam_r_end=meta["cam_r_end"]))
+    out = {}
+    for name in LEGACY_SIRENS:
+        G = ImplicitGenerator3d(siren_type=name, z_dim=256,
+                                generator=torch.Generator().manual_seed(15))
+        with torch.no_grad():
+            G.siren.final_layer.bias += DENSE_SIGMA_BIAS
+        G.eval()
+        with torch.no_grad():
+            G_dev = copy.deepcopy(G).to(device)
+            G_dev(z.to(device), cams.to(device), cfg)  # warm-up
+            take_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rgb, depth = G_dev(z.to(device), cams.to(device), cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = take_counts(counters)
+            rgb_cpu, _ = G(z, cams, cfg, row_offset=0, render_rows=LEGACY_CPU_ROWS)
+        rgb = rgb.cpu()
+        diff = (rgb[:, :LEGACY_CPU_ROWS] - rgb_cpu).abs().amax(-1)
+        over = float((diff > RENDER_TOL).float().mean())
+        out[name] = ms
+        print(f"phase 14 [{name} render]: {LEGACY_VIEWS} views at {cfg.img_size}^2, "
+              f"{cfg.num_steps}+{cfg.num_steps} samples, ray_chunks {cfg.ray_chunks}: "
+              f"{ms:.3f} ms, launches {counts} (design (0, 0, 0, 0)); pixels in "
+              f"[{rgb.min():.4f}, {rgb.max():.4f}] (std {rgb.std():.4f}); rows 0-"
+              f"{LEGACY_CPU_ROWS - 1} against the CPU: mean|pixel| {diff.mean():.3e} (bound "
+              f"{RENDER_MEAN_TOL}), max {diff.max():.3e}, share over {RENDER_TOL} {over:.3e}")
+        if counts != (0, 0, 0, 0):
+            failures.append(f"phase 14 [{name} render]: launches {counts}, design none")
+        if not (torch.isfinite(rgb).all() and torch.isfinite(depth).all()
+                and rgb.min() >= -1 - 1e-5 and rgb.max() <= 1 + 1e-5):
+            failures.append(f"phase 14 [{name} render]: output not finite or out of range")
+        if diff.mean() > RENDER_MEAN_TOL or diff.max() > RENDER_TOL:
+            failures.append(f"phase 14 [{name} render]: the card disagrees with the CPU")
+        del G, G_dev
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase14_remaining_models(device, dataset: Path, work: Path, failures: list) -> dict:
+    """The remaining models on the card: the conditional discriminators'
+    and TALLSIREN's stage-2 steps at full width (`phase13_step`: warm-up,
+    timed steps, launches against the design, nets moved, the kernels
+    against their plain versions, every number held on fp32 twins of E and
+    D), the train CLI on `cond_nearest`, then the other discriminators and
+    the legacy SIRENs against the CPU (the counters set to 0 just before
+    each path and read just after)."""
+    t0 = time.perf_counter()
+    out = dict(steps={})
+    for label, preset, profile in COND_PATHS:
+        t1 = time.perf_counter()
+        out["steps"][label] = phase13_step(label, preset, device, failures, profile=profile,
+                                           phase_no=14)
+        print(f"phase 14 [{label}]: {time.perf_counter() - t1:.2f} s")
+    t1 = time.perf_counter()
+    out["cond_trainer"] = phase14_cond_trainer(device, dataset, work, failures)
+    print(f"phase 14 [cond trainer]: {time.perf_counter() - t1:.2f} s")
+    t1 = time.perf_counter()
+    out["legacy_discriminators"] = phase14_legacy_discriminators(device, failures)
+    out["legacy_sirens"] = phase14_legacy_sirens(device, failures)
+    print(f"phase 14 [legacy models]: {time.perf_counter() - t1:.2f} s")
+    print(f"phase 14: {time.perf_counter() - t0:.2f} s")
     return out
 
 
@@ -3491,6 +3730,7 @@ def main() -> int:
         inference = phase12_infer(device, trainer, evaluation, failures)
         variants = phase13_voxel_variants(device, trainer["dataset"], Path(work),
                                           Path(build.BUILD_DIR), failures)
+        remaining = phase14_remaining_models(device, trainer["dataset"], Path(work), failures)
     if failures:
         raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
     thesis, dg_run = trainer["trainer"], trainer["dg_trainer"]
@@ -3508,6 +3748,10 @@ def main() -> int:
     new_paths.update(pyramid_serve=variants["pyramid_serve"][0],
                      dres_serve=variants["dres_serve"],
                      pyramid_trainer=variants["pyramid_trainer"][0])
+    # phase 14's paths: the conditional and TALLSIREN steps, the cond CLI run
+    new_paths.update({f"{label}_train": counts
+                      for label, (counts, _) in remaining["steps"].items()})
+    new_paths["cond_trainer"] = remaining["cond_trainer"][0]
     new_k = variants["kernels"]
     fwd32["launches_by_path"] = {"dg_serve": dg_k1, "dg_train": dg["k1"],
                                  "dg_trainer": dg_run[0], "dg_infer_modes": inference["dg_k1"],

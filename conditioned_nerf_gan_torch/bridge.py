@@ -12,9 +12,16 @@ and OIDHW. Module names map onto the port's attribute names:
     params.layer_i.conv1|conv2|proj            -> layers.i.conv1|conv2|proj
     params.encoder_i|decoder_i|upconv_i        -> encoders.i|decoders.i|upconvs.i
     ....SingleConv1|SingleConv2.conv|groupnorm -> ....conv1|conv2.conv|norm
-and `kernel` -> `weight`, `bias` -> `bias`, a GroupNorm's `scale` ->
-`weight` (`final_layer`, `final_conv`, an ExtResNetBlock's conv1/2/3 and a
-SingleConv's `batchnorm` keep their names). A transposed conv's kernel
+    params.siren.color_layer_sine.TorchLinear_0 -> siren.color_layer_sine.linear
+and `kernel` -> `weight`, `bias` -> `bias`, a GroupNorm's or a BatchNorm's
+`scale` -> `weight` (`final_layer`, `final_conv`, an ExtResNetBlock's
+conv1/2/3, a SingleConv's `batchnorm`, a strided block's conv1/conv2/proj,
+`color_layer_linear` and the projection D's ResNet18, `mapping.conv1`,
+`mapping.bn1` and `mapping.layer{s}_{b}.conv1|bn1|conv2|bn2|downsample_conv|
+downsample_bn`, keep their names). The ResNet18's `fc_kernel` (512, 1600)
+becomes `fc.weight` (1600, 512) and `fc_bias` `fc.bias`; EmbeddingPiGAN's
+`spatial_embeddings` (1, E, E, E, 32) stays channel-last. Any other leaf
+raises. A transposed conv's kernel
 (k, k, k, C_in, C_out) becomes the (C_in, C_out, k, k, k) weight of
 `F.conv_transpose3d` by a transpose alone: the JAX layer flips it inside
 its call, as conv_transpose3d does. This is the inverse of the `t2j_*`
@@ -24,7 +31,9 @@ Optimizer state crosses with the same names: an optax chain's
 `ScaleByAdamState` gives each torch parameter's Adam state, `mu` ->
 `exp_avg`, `nu` -> `exp_avg_sq` and `count` -> `step`
 (`load_optax_state`); `convert_train_checkpoint` turns a JAX trainer's
-`{step}.ckpt` into the port's trainer checkpoint.
+`{step}.ckpt` into the port's trainer checkpoint. Both read the flax
+msgpack file with the port's own reader (`utils/flax_msgpack.py`): nothing
+here imports flax or jax.
 
 The metric nets' weights (the JAX package's flat `.npz` of FID-Inception
 and LPIPS-AlexNet, keyed by flax path) load with `load_flat_weights`
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from .eval.weights import load_flat_weights  # noqa: F401  (re-exported)
+from .utils.flax_msgpack import msgpack_restore
 
 _RENAMES = (
     (re.compile(r"mapping_network\.TorchLinear_(\d+)"), r"mapping_network.layers.\1"),
@@ -54,18 +64,26 @@ _RENAMES = (
     (re.compile(r"(^|\.)decoder_(\d+)"), r"\1decoders.\2"),
     (re.compile(r"\.SingleConv([12])\."), r".conv\1."),
     (re.compile(r"\.groupnorm$"), r".norm"),
+    (re.compile(r"color_layer_sine\.TorchLinear_0"), r"color_layer_sine.linear"),
 )
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+def _flatten(tree: dict, prefix: str = "") -> dict:
     flat = {}
     for key, value in tree.items():
         name = f"{prefix}.{key}" if prefix else str(key)
         if isinstance(value, dict):
             flat.update(_flatten(value, name))
         else:
-            flat[name] = np.asarray(value)
+            flat[name] = value if isinstance(value, torch.Tensor) else np.asarray(value)
     return flat
+
+
+def _tensor(value, *dims) -> torch.Tensor:
+    """A leaf (numpy, or a torch tensor where numpy has no dtype for it) as a
+    contiguous torch tensor, its axes permuted to `dims` if given."""
+    t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value))
+    return t.permute(*dims).contiguous() if dims else t.clone()
 
 
 def params_to_state_dict(flax_tree: dict) -> dict[str, torch.Tensor]:
@@ -75,25 +93,32 @@ def params_to_state_dict(flax_tree: dict) -> dict[str, torch.Tensor]:
     tree = flax_tree.get("params", flax_tree)
     state = {}
     for name, value in _flatten(tree).items():
-        module, leaf = name.rsplit(".", 1)
+        module, leaf = name.rsplit(".", 1) if "." in name else ("", name)
         for pattern, repl in _RENAMES:
             module = pattern.sub(repl, module)
+        prefix = f"{module}." if module else ""
         if leaf == "kernel":
             if value.ndim == 2:
-                weight = value.T
+                weight = _tensor(value, 1, 0)
             elif value.ndim == 4:  # HWIO -> OIHW
-                weight = value.transpose(3, 2, 0, 1)
+                weight = _tensor(value, 3, 2, 0, 1)
             elif value.ndim == 5 and ".upconvs." in f".{module}.":
-                weight = value.transpose(3, 4, 0, 1, 2)  # DHWIO -> IODHW (transposed conv)
+                weight = _tensor(value, 3, 4, 0, 1, 2)  # DHWIO -> IODHW (transposed conv)
             elif value.ndim == 5:  # DHWIO -> OIDHW
-                weight = value.transpose(4, 3, 0, 1, 2)
+                weight = _tensor(value, 4, 3, 0, 1, 2)
             else:
                 raise ValueError(f"{name}: {value.ndim}-D kernels are not bridged")
-            state[f"{module}.weight"] = torch.from_numpy(np.ascontiguousarray(weight))
-        elif leaf == "scale":  # GroupNorm
-            state[f"{module}.weight"] = torch.from_numpy(np.array(value))
+            state[f"{prefix}weight"] = weight
+        elif leaf == "scale":  # GroupNorm, BatchNorm
+            state[f"{prefix}weight"] = _tensor(value)
         elif leaf == "bias":
-            state[f"{module}.bias"] = torch.from_numpy(np.array(value))
+            state[f"{prefix}bias"] = _tensor(value)
+        elif leaf == "fc_kernel":  # the ResNet18's head, x @ kernel
+            state[f"{prefix}fc.weight"] = _tensor(value, 1, 0)
+        elif leaf == "fc_bias":
+            state[f"{prefix}fc.bias"] = _tensor(value)
+        elif leaf == "spatial_embeddings":  # (1, E, E, E, 32), channel-last in both
+            state[f"{prefix}spatial_embeddings"] = _tensor(value)
         else:
             raise ValueError(f"{name}: unknown flax leaf {leaf!r}")
     return state
@@ -101,12 +126,10 @@ def params_to_state_dict(flax_tree: dict) -> dict[str, torch.Tensor]:
 
 def convert_checkpoint(path: str | Path) -> Path:
     """Convert a JAX `{step}.ckpt` (flax msgpack) into `{step}.pt` beside it,
-    holding {"step", "params_G", "params_E"} as torch state_dicts.
-    Needs flax installed; the rest of the port never imports it."""
-    from flax import serialization
-
+    holding {"step", "params_G", "params_E"} as torch state_dicts. The
+    file is read by the port's own msgpack reader (`utils/flax_msgpack.py`)."""
     path = Path(path)
-    raw = serialization.msgpack_restore(path.read_bytes())
+    raw = msgpack_restore(path.read_bytes())
     out = path.with_suffix(".pt")
     torch.save({
         "step": int(np.asarray(raw["step"])) if "step" in raw else int(path.stem),
@@ -176,16 +199,14 @@ def convert_train_checkpoint(path: str | Path) -> Path:
     both packages): the three nets' params and the three
     optimizers' Adam state, for the models and learning rates of the run's
     curriculum (`{run}/curriculum.json`, else the thousand preset) at that
-    step. Needs flax installed; runs on the CPU."""
-    from flax import serialization
-
+    step. Runs on the CPU."""
     from .infer.inference import build_models, load_metadata
     from .models.discriminators import make_discriminator
     from .training.checkpoints import save_checkpoint
     from .training.train_step import TrainStepConfig, create_train_state
 
     path = Path(path)
-    raw = serialization.msgpack_restore(path.read_bytes())
+    raw = msgpack_restore(path.read_bytes())
     step = int(np.asarray(raw["step"])) if "step" in raw else int(path.stem) + 1
     meta = load_metadata(int(path.stem), path.parent.parent)
     G, E = build_models(meta)

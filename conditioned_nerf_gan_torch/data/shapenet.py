@@ -47,6 +47,14 @@ def _read_resize_png16(path: str | Path, img_size: int) -> np.ndarray:
     return x / (2 ** 16 - 1)
 
 
+def cond_view_size(metadata: dict, img_size: int) -> int:
+    """The conditioning views' side: 256 for the projection D (its ResNet18's
+    input), else the image size."""
+    if metadata.get("discriminator") == "ProgressiveDiscriminator_projection":
+        return 256
+    return img_size
+
+
 def sample_cond(img_path: Path, cameras, mode: str, rng: random.Random) -> Path:
     """Pick a conditioning view (datasets.py:219-234)."""
     current_id = int(img_path.stem)
@@ -165,12 +173,7 @@ class ShapeNetDataset:
 
     @property
     def _cond_size(self) -> int:
-        return (
-            256
-            if self.metadata.get("discriminator")
-            == "ProgressiveDiscriminator_projection"
-            else self.img_size
-        )
+        return cond_view_size(self.metadata, self.img_size)
 
     def _item(self, index: int, defer: dict | None = None) -> dict:
         """One sample dict. With `defer`, the decode-heavy fields (img, cond,

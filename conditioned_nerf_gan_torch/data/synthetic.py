@@ -12,8 +12,9 @@ pipeline, the same files from the same seed as the JAX package's writer:
     {root_parent}/{mode}.lst             split lists (twenty/thousand/single/val)
 
 Each "car" is a randomized compound of colored boxes. Its views are rendered
-with the port's own ray and integration ops and a plain zeros-padded
-trilinear lookup (data preparation, not the main path: no kernel wrapper),
+with the port's own ray and integration ops and the plain zeros-padded
+trilinear lookup (`ops.grid_sample.masked_trilerp`: data preparation, not
+the main path),
 on `device`; the PNGs are written by the port's encoder (`utils/png.py`).
 """
 
@@ -25,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..ops.grid_sample import masked_trilerp
 from ..ops.integration import volume_integrate
 from ..ops.rays import create_cam2world_matrix, distance2depth, get_initial_rays, transform_rays
 from ..utils.png import write_png
@@ -79,27 +81,9 @@ def _surface_pcl(boxes, n_points: int, rng: np.random.Generator) -> np.ndarray:
 def zeros_trilerp(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """`F.grid_sample(..., align_corners=False, padding_mode="zeros")` on a
     channel-last (B, D, H, W, C) volume at (B, N, 3) coordinates in [-1, 1]
-    (x -> W, y -> H, z -> D): corners outside the volume weigh zero."""
-    B, D, H, W, C = volume.shape
-    flat = volume.reshape(B, D * H * W, C)
-    f = [((coords[..., i] + 1.0) * size - 1.0) / 2.0 for i, size in enumerate((W, H, D))]
-    lo = [torch.floor(v) for v in f]
-    t = [v - l for v, l in zip(f, lo)]
-    lo = [l.long() for l in lo]
-    out = torch.zeros((B, coords.shape[1], C), dtype=volume.dtype, device=volume.device)
-    for dz in (0, 1):
-        for dy in (0, 1):
-            for dx in (0, 1):
-                ix, iy, iz = lo[0] + dx, lo[1] + dy, lo[2] + dz
-                w = ((t[0] if dx else 1.0 - t[0]) * (t[1] if dy else 1.0 - t[1])
-                     * (t[2] if dz else 1.0 - t[2]))
-                valid = ((ix >= 0) & (ix < W) & (iy >= 0) & (iy < H) & (iz >= 0)
-                         & (iz < D))
-                index = ((iz.clamp(0, D - 1) * H + iy.clamp(0, H - 1)) * W
-                         + ix.clamp(0, W - 1))
-                corner = torch.gather(flat, 1, index[..., None].expand(-1, -1, C))
-                out = out + corner * torch.where(valid, w, 0.0)[..., None]
-    return out
+    (x -> W, y -> H, z -> D): corners outside the volume weigh zero. The
+    port's one plain zeros lookup, `ops.grid_sample.masked_trilerp`."""
+    return masked_trilerp(volume, coords, align_corners=False)
 
 
 @torch.no_grad()

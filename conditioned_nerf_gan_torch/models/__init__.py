@@ -1,6 +1,6 @@
-"""Models (port of conditioned_nerf_gan_tpu/models): SHORTSIREN and the FG
-SIRENs, the ResNet-PointNet and 3-D U-Net encoders, the generator
-composition and the progressive discriminator."""
+"""Models (port of conditioned_nerf_gan_tpu/models): every SIREN of the
+registry, the ResNet-PointNet and 3-D U-Net encoders, the generator
+composition and the seven discriminators."""
 
 from .discriminators import ProgressiveDiscriminator, make_discriminator
 from .generator import ImplicitGenerator3d, RenderConfig

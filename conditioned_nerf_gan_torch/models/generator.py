@@ -32,7 +32,7 @@ from ..ops.grid_sample import one_volume_grad
 from ..ops.integration import volume_integrate
 from ..ops.rays import distance2depth, get_initial_rays, perturb_points, transform_rays
 from ..ops.sampling import merge_sorted_samples, sample_pdf
-from .siren import make_siren
+from .siren import SIREN_SPECS, make_siren
 
 
 def one_grad_per_volume(z):
@@ -85,6 +85,7 @@ class ImplicitGenerator3d(nn.Module):
                  compute_dtype: torch.dtype | None = None, use_fast_sin: bool = False,
                  use_kernel: bool = False, *, generator: torch.Generator | None = None):
         super().__init__()
+        self.siren_type = siren_type
         self.z_dim = z_dim
         self.siren = make_siren(
             siren_type, z_dim=z_dim, input_dim=input_dim, output_dim=output_dim,
@@ -215,3 +216,21 @@ class ImplicitGenerator3d(nn.Module):
         pixels = pixels.reshape(B, H, W, 3) * 2.0 - 1.0
         depth = distance2depth(distances, rays_d_cam).reshape(B, H, W)
         return pixels, depth
+
+
+@torch.no_grad()
+def generate_avg_frequencies(generator_model: ImplicitGenerator3d, n_samples: int = 10000,
+                             *, generator: torch.Generator | None = None):
+    """The SIREN's mapping-network frequencies and phases averaged over
+    n_samples latents N(0, 1) of width z_dim, drawn from `generator` on the
+    model's device -> ((1, F), (1, F)): the truncation-trick statistic
+    (conditioned_nerf_gan_tpu/models/generator.py:340-364). The siren type
+    is looked up in `SIREN_SPECS` by the name the model was built with, as
+    in JAX: a name without a spec or a spec without a mapping raises."""
+    spec = SIREN_SPECS.get(generator_model.siren_type)
+    if spec is None or spec.mapping is None:
+        raise ValueError(f"{generator_model.siren_type} has no mapping network")
+    device = next(generator_model.parameters()).device
+    z = torch.randn((n_samples, generator_model.z_dim), generator=generator, device=device)
+    freq, phase = generator_model.siren.mapping_network(z)
+    return freq.mean(0, keepdim=True), phase.mean(0, keepdim=True)

@@ -153,14 +153,17 @@ class TorchLinear(nn.Module):
 
 class FiLMLayer(nn.Module):
     """sin(freq * (W x + b) + phase). freq/phase are per batch element (B, F),
-    broadcast over the point axis, or per point (B, N, F).
+    broadcast over the point axis, or per point (B, N, F) (TALLSIREN's
+    `pointfeat` mapping).
 
-    fp32 with `torch.sin`, unless a `compute_dtype` is set and freq is per
-    batch element: then the JAX layer's policy (models/layers.py FiLMLayer
-    and TorchLinear's fold_scale branch): freq folded into the weights and
-    rounded to compute_dtype, x rounded to it, products summed in fp32, plus
-    bias * freq and the phase, `fast_sin` (with `use_fast_sin`) or
-    `torch.sin` in fp32, the output stored in compute_dtype."""
+    fp32 without a `compute_dtype`. With one, the JAX layer's policy
+    (models/layers.py FiLMLayer): for freq per batch element, TorchLinear's
+    fold_scale branch, freq folded into the weights and rounded to
+    compute_dtype, x rounded to it, products summed in fp32, plus bias *
+    freq and the phase; for freq per point, `_MixedLinear`'s bf16 operands
+    and fp32 sums plus the bias, then freq * y + phase in fp32. Either way
+    the sin (`fast_sin` with `use_fast_sin`, else `torch.sin`, as on the
+    fp32 path) runs in fp32 and the output is stored in compute_dtype."""
 
     def __init__(self, in_features: int, hidden_dim: int, *,
                  kernel_init: Init = frequency_init(25),
@@ -170,23 +173,26 @@ class FiLMLayer(nn.Module):
         self.linear = TorchLinear(in_features, hidden_dim, kernel_init=kernel_init,
                                   generator=generator)
         self.compute_dtype = compute_dtype
-        self.use_fast_sin = use_fast_sin
+        self.sin = fast_sin if use_fast_sin else torch.sin
 
     def forward(self, x, freq, phase_shift):
-        if self.compute_dtype is not None and freq.ndim == 2 and x.ndim == 3:
-            dt = self.compute_dtype
+        dt = self.compute_dtype
+        if dt is not None and freq.ndim == 2 and x.ndim == 3:
             scaled = (self.linear.weight.t()[None] * freq[:, None, :]).to(dt)
             # operands rounded to dt, multiplied and summed in fp32 (a dt
             # matmul would round its output too)
             y = torch.bmm(x.to(dt).float(), scaled.float())
             y = y + (self.linear.bias * freq)[:, None, :]
-            sin = fast_sin if self.use_fast_sin else torch.sin
-            return sin(y + phase_shift[:, None, :]).to(dt)
-        x = self.linear(x)
+            return self.sin(y + phase_shift[:, None, :]).to(dt)
+        if dt is None:
+            x = self.linear(x)
+        else:
+            x = _MixedLinear.apply(x, self.linear.weight, dt) + self.linear.bias
         if freq.ndim == x.ndim - 1:
             freq = freq[:, None, :]
             phase_shift = phase_shift[:, None, :]
-        return torch.sin(freq * x + phase_shift)
+        y = self.sin(freq * x + phase_shift)
+        return y if dt is None else y.to(dt)
 
 
 class SirenLayer(nn.Module):
@@ -237,9 +243,12 @@ class ResSirenBlock(nn.Module):
         return y if dt is None else y.to(dt)
 
 
-class CustomMappingNetwork(nn.Module):
-    """z -> (frequencies, phase_shifts): 3 hidden LeakyReLU(0.2) layers,
-    kaiming-leaky init, last layer scaled by 0.25, output split in half."""
+class _MLPMapping(nn.Module):
+    """z -> (frequencies, phase_shifts): `num_hidden` LeakyReLU(0.2) layers,
+    kaiming-leaky init, last layer scaled by 0.25, output split in half
+    (conditioned_nerf_gan_tpu/models/layers.py:282-298). `layers.i` is the
+    flax `TorchLinear_i`. Applied to (..., z_dim): a latent per batch
+    element or a feature per point."""
 
     num_hidden = 3
 
@@ -261,6 +270,25 @@ class CustomMappingNetwork(nn.Module):
             x = F.leaky_relu(layer(x), negative_slope=0.2)
         freq, phase = self.layers[-1](x).chunk(2, dim=-1)
         return freq, phase
+
+
+class CustomMappingNetwork(_MLPMapping):
+    """3 hidden layers (layers.py:301-304)."""
+
+    num_hidden = 3
+
+
+class LongMappingNetwork(_MLPMapping):
+    """5 hidden layers (layers.py:305-308)."""
+
+    num_hidden = 5
+
+
+class PointFeaturesMappingNetwork(_MLPMapping):
+    """1 hidden layer, applied per point to the sampled features
+    (layers.py:311-314)."""
+
+    num_hidden = 1
 
 
 class LinearMapping(nn.Module):

@@ -1,10 +1,14 @@
 """Conditioned FiLM-SIREN decoders (port of conditioned_nerf_gan_tpu/models/siren.py).
 
 The JAX package collapses the reference's 14 SIREN classes into one
-`ConditionedSiren` driven by the `SIREN_SPECS` table. This port carries the
-table and builds every spec but `TALLSIREN`:
+`ConditionedSiren` driven by the `SIREN_SPECS` table, plus the legacy
+pi-GAN variants. This port builds every name of `SIREN_REGISTRY`:
   * points input, conditioned on a global latent z: `SHORTSIREN`, the
-    thesis model;
+    thesis model (its mapping `CustomMappingNetwork` or
+    `LongMappingNetwork`);
+  * points input, FiLM per point from a mapping of the features sampled
+    at the points (`PointFeaturesMappingNetwork`): `TALLSIREN`
+    (siren.py:205-211);
   * features input (per-point features sampled from the U-Net's feature
     volume, border-mode trilinear, points normalized by 0.6; from a feature
     pyramid, every level's features concatenated), FiLM from a linear
@@ -15,10 +19,16 @@ table and builds every spec but `TALLSIREN`:
   * features input without FiLM: plain SIREN and residual SIREN layers on
     a bare feature volume, `TALLSIREN_dRes`, `TALLSIREN_dResLong`,
     `SHORTSIREN_F` and `SHORTSIREN_FRes`.
-All-FiLM stacks of 2 or more layers go to the fused kernels under the
-presets' policy (`routes_to_kernel`); the rest run layer by layer. The
-per-point `pointfeat` mapping of `TALLSIREN` and the legacy variants raise
-`NotImplementedError` naming ROADMAP A13.
+  * the legacy pi-GAN variants (siren.py:291-425): `SPATIALSIRENBASELINE`
+    (8 FiLM layers on box-warped points, a view-dependent colour head) and
+    `EmbeddingPiGAN128`/`256` (the same with features from a learned
+    (1, E, E, E, 32) embedding cube, zeros padding, align_corners=True).
+All-FiLM stacks of 2 or more layers with freq per batch element go to the
+fused kernels under the presets' policy (`routes_to_kernel`); the rest run
+layer by layer. TALLSIREN's freq is per point (ndim 3), so the JAX gate
+(siren.py:222-239, `freq.ndim == 2`) keeps it off the fused kernel, and so
+does this one; its lookups still go through the trilinear kernels. The
+legacy variants never route to a kernel, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from .layers import (
     CustomMappingNetwork,
     FiLMLayer,
     LinearMapping,
+    LongMappingNetwork,
+    PointFeaturesMappingNetwork,
     ResSirenBlock,
     SirenLayer,
     TorchLinear,
@@ -70,6 +82,13 @@ def sample_pyramid_features(points: torch.Tensor, pyramid) -> torch.Tensor:
         pyramid = [pyramid]
     feats = [sample_volume_features(points, level) for level in pyramid]
     return feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)
+
+
+_MAPPINGS = {
+    "CustomMappingNetwork": CustomMappingNetwork,
+    "LongMappingNetwork": LongMappingNetwork,
+    "PointFeaturesMappingNetwork": PointFeaturesMappingNetwork,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,19 +143,17 @@ SIREN_REGISTRY = tuple(SIREN_SPECS) + (
 )
 
 
-def is_ported(spec: SirenSpec) -> bool:
-    """Every spec but the per-point `pointfeat` mapping's (TALLSIREN)."""
-    return spec.mapping != "pointfeat"
-
-
 class ConditionedSiren(nn.Module):
-    """The SIREN of a spec: points input conditioned on a global latent z,
-    or sampled-features input (a volume's, a pyramid's, or a volume's and
-    the points) conditioned on the U-Net's global feature or on nothing.
+    """The SIREN of a spec: points input conditioned on a global latent z or
+    per point on the features sampled there (`pointfeat`), or
+    sampled-features input (a volume's, a pyramid's, or a volume's and the
+    points) conditioned on the U-Net's global feature or on nothing.
     Layers of each kind keep the flax numbering: `film_layers.i` is
     FiLMLayer_i, `siren_layers.i` SirenLayer_i, `res_blocks.i`
     ResSirenBlock_i. `input_dim` is the sampled features' width (the
-    pyramid's summed); `features_points` adds the 3 coordinates."""
+    pyramid's summed); `features_points` adds the 3 coordinates. `z_dim` is
+    the mapping's input: the latent's width, the global feature's, or for
+    `pointfeat` the sampled features'."""
 
     def __init__(self, spec: SirenSpec, *, z_dim: int = 100, input_dim: int = 3,
                  hidden_dim: int = 256, output_dim: int = 4, drop_out: float = 0.0,
@@ -145,11 +162,6 @@ class ConditionedSiren(nn.Module):
                  use_fast_sin: bool = False, use_kernel: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if not is_ported(spec):
-            raise NotImplementedError(f"{spec} is not ported yet (ROADMAP A13)")
-        if spec.mapping == "selectable" and mapping_network != "CustomMappingNetwork":
-            raise NotImplementedError(
-                f"mapping network {mapping_network!r} is not ported yet (ROADMAP A13)")
         self.spec = spec
         self.hidden_dim = hidden_dim
         self.drop_out = drop_out
@@ -161,8 +173,10 @@ class ConditionedSiren(nn.Module):
             if spec.mapping == "linear":
                 self.mapping_network = LinearMapping(z_dim, out_dim, generator=generator)
             else:
-                self.mapping_network = CustomMappingNetwork(z_dim, 256, out_dim,
-                                                            generator=generator)
+                name = ("PointFeaturesMappingNetwork" if spec.mapping == "pointfeat"
+                        else mapping_network)
+                self.mapping_network = _MAPPINGS[name](z_dim, 256, out_dim,
+                                                       generator=generator)
         finit = frequency_init(spec.freq_init)
         first_in = input_dim + 3 if spec.input == "features_points" else input_dim
         layer = dict(compute_dtype=compute_dtype, use_fast_sin=use_fast_sin,
@@ -187,8 +201,9 @@ class ConditionedSiren(nn.Module):
 
     def routes_to_kernel(self, freq: torch.Tensor | None) -> bool:
         """The JAX package's gate (models/siren.py:222-239): an all-FiLM stack
-        of 2 or more layers, and the fused kernel serves only the bf16 +
-        fast-sin policy it was written for."""
+        of 2 or more layers with freq per batch element (not TALLSIREN's per
+        point), and the fused kernel serves only the bf16 + fast-sin policy
+        it was written for."""
         return (self.use_kernel
                 and all(k == "film" for k in self.spec.layers)
                 and len(self.spec.layers) >= 2
@@ -200,34 +215,39 @@ class ConditionedSiren(nn.Module):
 
     def _inputs(self, points: torch.Tensor, z):
         """The first layer's input and the mapping's source, as the JAX
-        package resolves z (models/siren.py:161-191): a (volume or pyramid,
-        global) pair or a bare volume for features input, a (pyramid,
-        global) pair for pyramid input, a latent (or a pair's second member)
-        for points input."""
+        package resolves z (models/siren.py:161-211): a (volume or pyramid,
+        global) pair or a bare volume for features input, and for TALLSIREN's
+        points input, whose mapping reads the features sampled at the
+        points; a (pyramid, global) pair for pyramid input; a latent (or a
+        pair's second member) for points input conditioned on z."""
         spec = self.spec
         pair = isinstance(z, (tuple, list))
-        if spec.input in ("features", "features_points"):
-            volume, global_feature = (z[0], z[1]) if pair else (z, None)
-            x = sample_pyramid_features(points, volume)
+        if spec.input in ("features", "features_points") or spec.mapping == "pointfeat":
+            volume, source = (z[0], z[1]) if pair else (z, None)
+            if spec.mapping == "pointfeat":
+                x, source = points, sample_pyramid_features(points, volume)
+            else:
+                x = sample_pyramid_features(points, volume)
             if spec.input == "features_points":
                 x = torch.cat([x, points], dim=-1)
         elif spec.input == "pyramid":
-            pyramid, global_feature = z
+            pyramid, source = z
             x = sample_pyramid_features(points, pyramid)
         else:
-            x, global_feature = points, (z[1] if pair else z)
-        if spec.mapping is not None and global_feature is None:
+            x, source = points, (z[1] if pair else z)
+        if spec.mapping is not None and source is None:
             raise ValueError(f"{spec} is conditioned on a (volume, global) pair")
-        return x, global_feature
+        return x, source
 
     def forward(self, points: torch.Tensor, z) -> torch.Tensor:
         """points (B, N, 3) world points; z the conditioning: a latent
         (B, z_dim) for points input; for features input a (volume (B, D, H,
         W, C) or pyramid [levels], global (B, z_dim)) pair, or a bare volume
-        where the spec has no mapping; a (pyramid, global) pair for pyramid
-        input -> (B, N, 4). Past the gate, CUDA inputs go to the forward
-        kernel, and with grad enabled its backward is the backward kernel
-        (`FilmSirenMLP`)."""
+        where the spec has no mapping; for TALLSIREN a volume of C = z_dim
+        (or a pair, whose second member goes unused); a (pyramid, global)
+        pair for pyramid input -> (B, N, 4). Past the gate, CUDA inputs go
+        to the forward kernel, and with grad enabled its backward is the
+        backward kernel (`FilmSirenMLP`)."""
         x, global_feature = self._inputs(points, z)
         freq = phase = None
         if self.spec.mapping is not None:
@@ -259,16 +279,122 @@ class ConditionedSiren(nn.Module):
         return rgb_sigma
 
 
+class UniformBoxWarp(nn.Module):
+    """coordinates * 2 / sidelength (siren.py:291-297)."""
+
+    def __init__(self, sidelength: float):
+        super().__init__()
+        self.scale = 2.0 / sidelength
+
+    def forward(self, coordinates: torch.Tensor) -> torch.Tensor:
+        return coordinates * self.scale
+
+
+def _modified_first_init(weight: torch.Tensor, generator=None) -> None:
+    """EmbeddingPiGAN's first layer: U(+-1/3) whatever the fan-in (the
+    reference's `modified_first_sine_init` takes num_input 3)."""
+    weight.uniform_(-1.0 / 3.0, 1.0 / 3.0, generator=generator)
+
+
+class SpatialSirenBaseline(nn.Module):
+    """The unconditional pi-GAN baseline (siren.py:300-351): z through
+    `CustomMappingNetwork` to 9 layers of freq/phase, 8 FiLM layers on the
+    points warped by a box of side 0.24, a sigma head, and a colour head,
+    sigmoid(linear(FiLM([ray directions, x]))) on the last freq/phase
+    slice. The generator passes no ray directions (zeros), as in JAX. Under
+    a `compute_dtype` the layers take the JAX policy (FiLM folded, the heads
+    `_MixedLinear`). `color_layer_sine` is the flax `color_layer_sine`,
+    `film_layers.i` FiLMLayer_i."""
+
+    n_layers = 8
+    first_in = 3
+
+    def __init__(self, *, z_dim: int = 100, hidden_dim: int = 256, output_dim: int = 4,
+                 drop_out: float = 0.0, compute_dtype: torch.dtype | None = None,
+                 use_fast_sin: bool = False, generator: torch.Generator | None = None,
+                 first_init=first_layer_film_sine_init):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.drop_out = drop_out
+        self.mapping_network = CustomMappingNetwork(
+            z_dim, 256, (self.n_layers + 1) * hidden_dim * 2, generator=generator)
+        self.warp = UniformBoxWarp(0.24)
+        finit = frequency_init(25)
+        layer = dict(compute_dtype=compute_dtype, use_fast_sin=use_fast_sin,
+                     generator=generator)
+        self.film_layers = nn.ModuleList([
+            FiLMLayer(self.first_in if i == 0 else hidden_dim, hidden_dim,
+                      kernel_init=first_init if i == 0 else finit, **layer)
+            for i in range(self.n_layers)])
+        self.final_layer = TorchLinear(hidden_dim, 1, kernel_init=finit,
+                                       compute_dtype=compute_dtype, generator=generator)
+        self.color_layer_sine = FiLMLayer(hidden_dim + 3, hidden_dim, kernel_init=finit,
+                                          **layer)
+        self.color_layer_linear = TorchLinear(hidden_dim, 3, kernel_init=finit,
+                                              compute_dtype=compute_dtype,
+                                              generator=generator)
+
+    def _features(self, warped: torch.Tensor) -> torch.Tensor:
+        return warped
+
+    def forward(self, points: torch.Tensor, z: torch.Tensor,
+                ray_directions: torch.Tensor | None = None) -> torch.Tensor:
+        """points (B, N, 3), z (B, z_dim) -> rgb + sigma (B, N, 4)."""
+        H = self.hidden_dim
+        freq, phase = self.mapping_network(z)
+        freq = freq * 15.0 + 30.0
+        x = self._features(self.warp(points))
+        for i, layer in enumerate(self.film_layers):
+            x = layer(x, freq[..., i * H:(i + 1) * H], phase[..., i * H:(i + 1) * H])
+        sigma = self.final_layer(x)
+        if ray_directions is None:
+            ray_directions = torch.zeros_like(points)
+        rgb = self.color_layer_sine(torch.cat([ray_directions.to(x.dtype), x], dim=-1),
+                                    freq[..., -H:], phase[..., -H:])
+        rgb = torch.sigmoid(self.color_layer_linear(rgb))
+        return torch.cat([rgb, sigma.to(rgb.dtype)], dim=-1)
+
+
+class EmbeddingPiGAN(SpatialSirenBaseline):
+    """pi-GAN with a learned spatial embedding cube (siren.py:354-425): the
+    first layer reads [the 32 features of `spatial_embeddings` (1, E, E, E,
+    32), N(0, embedding_scale^2), sampled at the warped points with zeros
+    padding and align_corners=True (plain torch, `ops/grid_sample.py`),
+    the warped points], its init U(+-1/3). The cube is sampled as one
+    volume for the whole batch's points, as the JAX module's broadcast of
+    it does."""
+
+    first_in = 32 + 3
+
+    def __init__(self, *, embedding_res: int = 96, embedding_scale: float = 0.01,
+                 hidden_dim: int = 128, generator: torch.Generator | None = None, **kwargs):
+        super().__init__(hidden_dim=hidden_dim, generator=generator,
+                         first_init=_modified_first_init, **kwargs)
+        self.spatial_embeddings = nn.Parameter(
+            torch.empty(1, embedding_res, embedding_res, embedding_res, 32))
+        with torch.no_grad():
+            self.spatial_embeddings.normal_(0.0, embedding_scale, generator=generator)
+
+    def _features(self, warped: torch.Tensor) -> torch.Tensor:
+        B, N, _ = warped.shape
+        shared = trilinear_point_features(self.spatial_embeddings, warped.reshape(1, B * N, 3),
+                                          align_corners=True, padding_mode="zeros")
+        return torch.cat([shared.reshape(B, N, -1), warped], dim=-1)
+
+
 def make_siren(siren_type: str, *, z_dim: int = 100, input_dim: int = 3,
                output_dim: int = 4, hidden_dim: int = 256, drop_out: float = 0.0,
                mapping_network: str = "CustomMappingNetwork",
                compute_dtype: torch.dtype | None = None, use_fast_sin: bool = False,
                use_kernel: bool = False, generator: torch.Generator | None = None,
                **_unused) -> nn.Module:
-    """Build a SIREN variant by reference class name (aliases resolved).
-    `z_dim` is the mapping's input: the latent, or the U-Net's global
-    feature; `input_dim` the sampled features' width: 3 for points input,
-    the feature volume's C, or the pyramid's summed C."""
+    """Build a SIREN variant by reference class name (aliases resolved),
+    as siren.py:428-474 does. `z_dim` is the mapping's input: the latent,
+    the U-Net's global feature, or TALLSIREN's sampled features; `input_dim`
+    the sampled features' width: 3 for points input, the feature volume's
+    C, or the pyramid's summed C. The legacy variants take z_dim,
+    output_dim and their own widths (EmbeddingPiGAN128: hidden 128, a 96^3
+    cube at scale 0.01; 256: hidden 256, 64^3 at 0.1)."""
     siren_type = resolve_siren_alias(siren_type)
     if siren_type in SIREN_SPECS:
         return ConditionedSiren(
@@ -276,6 +402,14 @@ def make_siren(siren_type: str, *, z_dim: int = 100, input_dim: int = 3,
             hidden_dim=hidden_dim, output_dim=output_dim, drop_out=drop_out,
             mapping_network=mapping_network, compute_dtype=compute_dtype,
             use_fast_sin=use_fast_sin, use_kernel=use_kernel, generator=generator)
-    if siren_type in SIREN_REGISTRY:
-        raise NotImplementedError(f"{siren_type} is not ported yet (ROADMAP A13)")
+    legacy = dict(z_dim=z_dim, output_dim=output_dim, drop_out=drop_out,
+                  compute_dtype=compute_dtype, use_fast_sin=use_fast_sin, generator=generator)
+    if siren_type == "SPATIALSIRENBASELINE":
+        return SpatialSirenBaseline(hidden_dim=hidden_dim, **legacy)
+    if siren_type == "EmbeddingPiGAN128":
+        return EmbeddingPiGAN(hidden_dim=128, embedding_res=96, embedding_scale=0.01,
+                              **legacy)
+    if siren_type == "EmbeddingPiGAN256":
+        return EmbeddingPiGAN(hidden_dim=256, embedding_res=64, embedding_scale=0.1,
+                              **legacy)
     raise ValueError(f"Unknown siren_type {siren_type!r}")

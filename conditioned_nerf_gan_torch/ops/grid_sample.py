@@ -29,9 +29,18 @@ convention: coords[..., 0] = x -> W, 1 = y -> H, 2 = z -> D.
 The JAX package's two gather strategies (the (z, y)-expanded slab and the
 (2, 2, 2, C) block gather) and its one-hot-matmul VJP work around the TPU's
 gather segments and its lack of atomic scatter; none is ported: the port's
-dV is a scatter into one buffer a render. The zeros-padding and
-align_corners=True variant (`EmbeddingPiGAN`, ROADMAP A13) is not ported
-yet.
+dV is a scatter into one buffer a render.
+
+  * `masked_trilerp`: the JAX zeros-padding lookup
+    (conditioned_nerf_gan_tpu/ops/grid_sample.py:264-336), each of the 8
+    corners gathered at its clamped index and weighed by its trilinear
+    weight, zero where the corner lies outside the volume. Plain torch
+    under autograd on every device: in JAX it is plain XLA, with no custom
+    VJP and no Pallas kernel, so no kernel is owed. The wrapper takes it
+    for zeros padding: EmbeddingPiGAN's align_corners=True lookup and the
+    fixture writer's align_corners=False one. Border padding takes
+    align_corners=False alone: no model of either package samples a border
+    volume otherwise.
 """
 
 from __future__ import annotations
@@ -41,8 +50,10 @@ import torch
 from .kernels.trilinear import trilinear_bwd, trilinear_fwd
 
 
-def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
-    return ((coord + 1.0) * size - 1.0) / 2.0  # align_corners=False
+def _unnormalize(coord: torch.Tensor, size: int, align_corners: bool = False) -> torch.Tensor:
+    if align_corners:
+        return (coord + 1.0) / 2.0 * (size - 1)
+    return ((coord + 1.0) * size - 1.0) / 2.0
 
 
 def _anchor_fractions(f: torch.Tensor, size: int):
@@ -157,6 +168,35 @@ def border_trilerp_vjp_reference(volume: torch.Tensor, coords: torch.Tensor,
     return dvol, torch.stack(dcoords, dim=-1)
 
 
+def masked_trilerp(volume: torch.Tensor, coords: torch.Tensor, *,
+                   align_corners: bool = False) -> torch.Tensor:
+    """The zeros-padding lookup: volume (B, D, H, W, C), coords (B, N, 3)
+    normalized -> (B, N, C), positions unnormalized by `align_corners`, a
+    corner outside the volume weighing 0. Corners in the order z, y, x
+    (outer to inner), each weight ((wx wy) wz), summed in that order, as
+    the JAX generic path computes them."""
+    B, D, H, W, C = volume.shape
+    flat = volume.reshape(B, D * H * W, C)
+    f = [_unnormalize(coords[..., i], size, align_corners) for i, size in enumerate((W, H, D))]
+    lo = [torch.floor(v) for v in f]
+    t = [v - l for v, l in zip(f, lo)]
+    lo = [l.long() for l in lo]
+    out = torch.zeros((B, coords.shape[1], C), dtype=volume.dtype, device=volume.device)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                ix, iy, iz = lo[0] + dx, lo[1] + dy, lo[2] + dz
+                w = ((t[0] if dx else 1.0 - t[0]) * (t[1] if dy else 1.0 - t[1])
+                     * (t[2] if dz else 1.0 - t[2]))
+                valid = ((ix >= 0) & (ix < W) & (iy >= 0) & (iy < H) & (iz >= 0)
+                         & (iz < D))
+                index = ((iz.clamp(0, D - 1) * H + iy.clamp(0, H - 1)) * W
+                         + ix.clamp(0, W - 1))
+                corner = torch.gather(flat, 1, index[..., None].expand(-1, -1, C))
+                out = out + corner * torch.where(valid, w, 0.0)[..., None]
+    return out
+
+
 def _takes_kernels(t: torch.Tensor) -> bool:
     """CUDA tensors go to the kernels, CPU tensors to the plain versions;
     there is no kernel for any other device."""
@@ -250,19 +290,25 @@ def trilinear_point_features(volume: torch.Tensor, coords: torch.Tensor, *,
 
     volume (B, D, H, W, C) channel-last; coords (B, N, 3) normalized to
     [-1, 1] in the grid convention (x -> W, y -> H, z -> D) -> (B, N, C).
-    Border padding with align_corners=False: the voxel family's lookup. CUDA tensors go to the hand-written kernel (fp32, C % 4 == 0,
+    Border padding with align_corners=False, the voxel family's lookup:
+    CUDA tensors go to the hand-written kernel (fp32, C % 4 == 0,
     contiguous), through `TrilinearSample` when an input needs grad (a
     volume that needs grad through `one_volume_grad` first, unless the
     caller's render put it through once for all its lookups); CPU tensors
-    take `border_trilerp_reference` under plain autograd.
+    take `border_trilerp_reference` under plain autograd. Zeros padding is
+    `masked_trilerp` under plain autograd on any device, as the JAX
+    package's is plain XLA.
     """
-    if padding_mode != "border" or align_corners:
-        raise NotImplementedError(
-            f"padding_mode={padding_mode!r}, align_corners={align_corners} is not "
-            "ported yet (the EmbeddingPiGAN lookup, ROADMAP A13)")
+    if padding_mode not in ("border", "zeros"):
+        raise ValueError(f"Unsupported padding_mode {padding_mode!r}")
     if volume.ndim != 5 or min(volume.shape[1:4]) < 1:
         raise ValueError(f"volume of shape {tuple(volume.shape)}: the lookup samples "
                          "(B, D, H, W, C) volumes")
+    if padding_mode == "zeros":
+        return masked_trilerp(volume, coords, align_corners=align_corners)
+    if align_corners:
+        raise ValueError("border padding samples with align_corners=False (the voxel "
+                         "family's lookup); no model samples a border volume otherwise")
     if not _takes_kernels(volume):
         return border_trilerp_reference(volume, coords)
     if torch.is_grad_enabled() and (volume.requires_grad or coords.requires_grad):

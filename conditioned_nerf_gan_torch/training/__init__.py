@@ -4,7 +4,15 @@ the GAN train step, the stage workload setup, checkpoints and the Trainer
 
 from .bench_setup import StageBench, build_stage_bench
 from .checkpoints import find_newest_checkpoint, restore_checkpoint, save_checkpoint
-from .losses import depth_loss, gan_d_loss, gan_g_loss, photometric_loss, r1_penalty
+from .losses import (
+    depth_loss,
+    gan_d_loss,
+    gan_g_loss,
+    geometry_loss,
+    photometric_loss,
+    r1_penalty,
+    z_sampler,
+)
 from .schedules import fade_alpha, nerf_noise_schedule
 from .train_step import (
     ClippedAdam,
@@ -29,6 +37,7 @@ __all__ = [
     "find_newest_checkpoint",
     "gan_d_loss",
     "gan_g_loss",
+    "geometry_loss",
     "make_optimizer",
     "make_train_step",
     "nerf_noise_schedule",
@@ -36,4 +45,5 @@ __all__ = [
     "r1_penalty",
     "restore_checkpoint",
     "save_checkpoint",
+    "z_sampler",
 ]

@@ -5,8 +5,10 @@ Builds the models, the step config (with the trainer's static density-noise
 gate) and a synthetic numpy batch shaped like a curriculum stage's batch,
 for `chip_smoke.py` and the tests: the thesis model's point clouds, or for
 a voxel preset (`dg`) voxel grids of seeded box clouds, voxelised by the
-repo's `voxelize_pcl` rule. The batch's cameras are drawn on the camera
-shell from the seed (the JAX bench puts every camera at the origin).
+repo's `voxelize_pcl` rule; with a conditional discriminator (`cond_mode`)
+seeded conditioning views at the size the loader gives them (256 for the
+projection D, else the image size). The batch's cameras are drawn on the
+camera shell from the seed (the JAX bench puts every camera at the origin).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from ..config import extract_metadata, load_curriculum
+from ..data.shapenet import cond_view_size
 from ..infer.inference import build_models, compute_dtype, voxel_to_ndhwc
 from ..models.discriminators import make_discriminator
 from ..ops.rays import create_cam2world_matrix, sample_camera_positions
@@ -134,5 +137,8 @@ def build_stage_bench(preset: str = "thousand", stage: int = 2, step: int | None
         batch["pcl"] = rng.uniform(-0.4, 0.4, (B, n_pts, 6)).astype(np.float32)
     else:
         batch["voxel"] = make_voxel_grids(rng, B, meta.get("voxel_resolution", VOXEL_RES))
+    if cfg.cond_mode:
+        side = cond_view_size(meta, img)
+        batch["cond"] = rng.uniform(-1, 1, (B, side, side, 3)).astype(np.float32)
     return StageBench(G, E, D, cfg, batch, meta,
                       fade_alpha(step, start, meta["fade_steps"]), nerf_noise)

@@ -14,6 +14,14 @@ conditioned_nerf_gan_tpu/training/train_step.py:155-458).
     eps 1e-8; the mapping network is its own parameter group at
     `mapping_lr_mult` x lr.
 
+With `cond_mode` the discriminator is a conditional one (InputCat,
+Projection): the D step hands it `batch["cond"]`, the conditioning views,
+on the real and the fake images and through R1 (whose gradient is taken
+of the real images alone), and the G step each split's `cond`
+(train_step.py:229-230, 320-347, 375-377). A discriminator that returns a
+tuple (the Encoder and legacy ones) gives its first member, the logits
+(`disc_logits`, train_step.py:295-297).
+
 The encoder is the PointNet of a point cloud (`load_pcl`) or the 3-D U-Net
 of a voxel grid (the voxel family, `dg`), whose (feature volume, global
 feature) pair conditions the render unchanged; its grads come back through
@@ -177,12 +185,18 @@ def make_train_step(config: TrainStepConfig) -> Callable:
     step. `batch` holds tensors on the models' device: img (B, S, S, 3) in
     [-1, 1], cam2world (B, 4, 4), the conditioning (pcl (B, T, 6), or with
     `load_voxel` and not `load_pcl` voxel (B, R, R, R, 4) NDHWC) and, with
-    the depth loss, depth (B, S, S)."""
+    the depth loss, depth (B, S, S), and with `cond_mode` the conditioning
+    views cond (B, S', S', 3) at the discriminator's size."""
     if not (config.load_pcl or config.load_voxel):
         raise ValueError("the train step needs load_pcl or load_voxel")
-    if config.cond_mode:
-        raise NotImplementedError("conditional discriminators are ROADMAP A13")
     render = config.render
+
+    def disc_logits(D, imgs, alpha, chunk):
+        """D's logits on `imgs`, conditioned on the chunk's views in
+        `cond_mode`; a tuple output gives its first member."""
+        cond = chunk.get("cond") if config.cond_mode else None
+        out = D(imgs, alpha, cond=cond)
+        return out[0] if isinstance(out, tuple) else out
 
     def encode(encoder, chunk, generator):
         """Encoder forward -> (z, z_reg): the PointNet's latent and its
@@ -214,8 +228,8 @@ def make_train_step(config: TrainStepConfig) -> Callable:
 
         D = state.discriminator
         real = real.detach().requires_grad_(config.r1_lambda > 0)
-        r_logits = D(real, alpha)
-        loss = gan_d_loss(r_logits, D(gen_imgs, alpha))
+        r_logits = disc_logits(D, real, alpha, batch)
+        loss = gan_d_loss(r_logits, disc_logits(D, gen_imgs, alpha, batch))
         if config.r1_lambda > 0:
             loss = loss + config.r1_lambda * r1_penalty(r_logits, real)
         state.opt_D.zero_grad(set_to_none=True)
@@ -243,7 +257,7 @@ def make_train_step(config: TrainStepConfig) -> Callable:
                 z, z_reg = encode(E, chunk, generator)
                 gen_imgs, gen_depths = G(z, chunk["cam2world"], render,
                                          generator=generator, nerf_noise=nerf_noise)
-                loss_G = (gan_g_loss(D(gen_imgs, alpha))
+                loss_G = (gan_g_loss(disc_logits(D, gen_imgs, alpha, chunk))
                           if config.enable_discriminator else zero)
                 photo = (photometric_loss(chunk["img"], gen_imgs)
                          if config.photo_loss else zero)

@@ -148,8 +148,20 @@ def test_init_schemes_are_seeded_and_scaled():
     ("SPATIALSIREN" + "BASELINE", "A13"), ("EmbeddingPiGAN128", "A13"),
 ])
 def test_unported_sirens_name_their_roadmap_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make_siren(name)
+    """The SIRENs that were ROADMAP A13 now build, each with the JAX
+    module's param tree (names and shapes, through the bridge; the JAX
+    init only traced); TALLSIREN's mapping is the per-point
+    `pointfeat` one."""
+    pts, z = jnp.zeros((1, 4, 3)), jnp.zeros((1, Z))
+    cond = jnp.zeros((1, 4, 4, 4, Z)) if name == "TALLSIREN" else z
+    shapes = jax.eval_shape(lambda k: j_make_siren(name, z_dim=Z, hidden_dim=H).init(k, pts, cond),
+                            jax.random.PRNGKey(0))
+    ref = bridge.params_to_state_dict(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes))
+    port = make_siren(name, z_dim=Z, hidden_dim=H)
+    assert {k: tuple(v.shape) for k, v in port.state_dict().items()} == {
+        k: tuple(v.shape) for k, v in ref.items()}
+    if item == "pointfeat":
+        assert type(port.mapping_network).__name__ == "PointFeaturesMappingNetwork"
 
 
 def test_unknown_siren_raises():

@@ -243,8 +243,22 @@ def test_bridge_maps_conv_kernels_and_refuses_3d():
 
 
 def test_make_discriminator_refuses_unported_variants():
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_discriminator("ProgressiveEncoderDiscriminator")
+    """make_discriminator builds every name of the JAX registry, each with
+    the JAX module's param tree (names and shapes, through the bridge; the
+    JAX init only traced); an unknown name still raises."""
+    from conditioned_nerf_gan_tpu.models.discriminators import DISCRIMINATOR_REGISTRY
+
+    img = jnp.zeros((1, 16, 16, 3))
+    for name in DISCRIMINATOR_REGISTRY:
+        cond = img if name.endswith(("inputCat", "projection")) else None
+        shapes = jax.eval_shape(
+            lambda k, n=name, c=cond: j_make_discriminator(n).init(k, img, 1.0, cond=c),
+            jax.random.PRNGKey(0))
+        ref = bridge.params_to_state_dict(
+            jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes))
+        port = make_discriminator(name)
+        assert {k: tuple(v.shape) for k, v in port.state_dict().items()} == {
+            k: tuple(v.shape) for k, v in ref.items()}, name
     with pytest.raises(ValueError, match="Unknown"):
         make_discriminator("NoSuchDiscriminator")
 

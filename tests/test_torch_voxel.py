@@ -152,9 +152,15 @@ def test_trilinear_wrapper_on_cpu_and_refusals():
     assert tgs.trilinear_point_features.launches == before
     torch.testing.assert_close(out, tgs.border_trilerp_reference(vol, coords),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tgs.trilinear_point_features(vol, coords, padding_mode="zeros")
-    with pytest.raises(NotImplementedError, match="A13"):
+    # zeros padding answers in plain torch, no launch (both align_corners);
+    # border padding takes align_corners=False alone
+    for align in (False, True):
+        torch.testing.assert_close(
+            tgs.trilinear_point_features(vol, coords, padding_mode="zeros",
+                                         align_corners=align),
+            tgs.masked_trilerp(vol, coords, align_corners=align), rtol=0, atol=0)
+    assert tgs.trilinear_point_features.launches == before
+    with pytest.raises(ValueError, match="align_corners=False"):
         tgs.trilinear_point_features(vol, coords, align_corners=True)
     # a side of 1 takes the plain version too (both corners on its voxel)
     thin = vol[:, :1].contiguous()

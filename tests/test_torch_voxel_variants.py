@@ -224,13 +224,14 @@ def test_new_sirens_match_jax(name, cond, policy):
 
 
 def test_every_spec_but_tallsiren_is_ported():
-    """TALLSIREN's per-point `pointfeat` mapping and the legacy variants stay
-    in A13; a features SIREN with FiLM still needs a (volume, global) pair."""
+    """Every spec is ported now, TALLSIREN's per-point `pointfeat` mapping
+    and the legacy variants too (ROADMAP A13): each builds; a features
+    SIREN with FiLM still needs a (volume, global) pair."""
     for name, spec in tsiren.SIREN_SPECS.items():
-        assert tsiren.is_ported(spec) == (name != "TALLSIREN")
+        siren = make_siren(name, z_dim=GLOBAL, input_dim=8, hidden_dim=H)
+        assert siren.spec == spec
     for name in ("TALLSIREN", "SPATIALSIRENBASELINE", "EmbeddingPiGAN128"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            make_siren(name)
+        assert isinstance(make_siren(name, z_dim=8, hidden_dim=H), torch.nn.Module)
     siren = make_siren("TALLSIREN_dg", z_dim=GLOBAL, input_dim=8, hidden_dim=H)
     with pytest.raises(ValueError, match="pair"):
         siren(torch.zeros(2, 5, 3), torch.zeros(2, 4, 4, 4, 8))
