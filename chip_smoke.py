@@ -12,8 +12,11 @@ Refuses to run without CUDA (exit 1). Otherwise:
      (`film_siren_mlp_folded`, same bf16-operand math) at the thesis render
      shape, at the training chunk (12 x 49,152, where most of its main-path
      launches run), at stage 0's unchunked batch (24 x 49,152), at the
-     serving ray chunk and at a ragged N, and times both with CUDA events,
-     each time beside its bound and kernel / bound;
+     serving ray chunk, at phase 15's shapes a rank (the data-parallel
+     step's 6 x 49,152 and the two-rank eval's 16 and 8 x 1,572,864, whose
+     plain versions run over slices of 2 views) and at a ragged N, and
+     times both with CUDA events, each time beside its bound and kernel /
+     bound;
  1b. the same at the voxel family's shape (Din 32, 8 layers) at 2 x 786,432,
      at the `dg` training chunk (12 x 49,152), at its serving ray chunk
      (2 x 49,152) and a ragged 2 x 1,000;
@@ -31,7 +34,8 @@ Refuses to run without CUDA (exit 1). Otherwise:
   4. holds the FiLM-SIREN backward kernel against its plain torch version
      (`film_siren_mlp_folded_vjp`, same bf16 roundings) at the 1.57M-point
      study shape, at the training chunk the main path gives it, at stage
-     0's unchunked batch (24 x 49,152) and at a ragged N: norm-relative error, a low-frequency max, distance to fp64
+     0's unchunked batch (24 x 49,152), at the data-parallel step's 6 x
+     49,152 a rank and at a ragged N: norm-relative error, a low-frequency max, distance to fp64
      sums against the plain version's, bitwise-equal repeats; and times both,
      beside the bound;
  4b. the same at the voxel family's shape (Din 32, 8 layers: TALLSIREN_FG's
@@ -173,6 +177,33 @@ Refuses to run without CUDA (exit 1). Otherwise:
      CCSEncoder discriminators at 128^2 (heads, R1, grads) and a render of
      SPATIALSIRENBASELINE and EmbeddingPiGAN128/256 (2 views at 128^2),
      each against the same module on the CPU.
+ 15. data parallelism, the ray-sharded render and the tools on the card
+     (one card: NCCL refuses two ranks on one device, so two ranks share it
+     over gloo, which takes CUDA tensors): (a) two spawned ranks train the
+     thesis stage-2 step at full width, 6 views a rank (global 12): a
+     warm-up and 2 timed steps, s/step and the all-reduces' ms (CUDA
+     events) a rank, K1/K2 at the design count a rank a step, the replicas
+     bit-equal after every step, then the fp32 twins' averaged grads and
+     metrics against a one-process reference (the two half batches in two
+     threads, their grads averaged, the same ClippedAdam steps) at phase
+     5's bounds; (b) the train CLI with --distributed at world size 1 on
+     NCCL, thesis stages 0 and 1 of phase 10's curriculum, the all-reduces
+     a step against one per optimizer step, the losses within
+     RESUME_LOSS_TOL of phase 10's run without the flags; (c) the train
+     CLI on two ranks (gloo) across stage 0 -> 1 with one eval: fid.txt's
+     one line from rank 0 over both ranks' image shards, each checkpoint
+     written once, and a two-rank resume that replays the next step; (d)
+     `render_ray_sharded` over [cuda:0, cuda:0] bit-equal to the unsharded
+     render, K1 at two slabs' count, the same from a generator held on the
+     CPU (the slabs on a replica, refreshed after a param changes), and the
+     infer CLI with --shard_rays, unsharded on one card and through
+     `render_ray_sharded` with the card named twice, the grids' bytes equal;
+     (e) the tools: chamfer over 2 x 65,536 points against scipy's cKDTree,
+     the first-hit voxel render and the pcl2voxel orbit AVI's frame 0
+     against the CPU, the geometry-loss replay (K1) against the plain K1,
+     the fixture exporter's render against the CPU. Every spawned rank's
+     exit code is checked, and every (B, N) at which a rank launched K1 or
+     K2 must be one that phase 1 or 4 held against the plain version.
 Phases 2, 5, 7, 9, 10 and 11 each print a precision line: which nets run
 the bf16 policy and the process's TF32 and bf16-reduction flags.
 Prints one JSON line of kernel results (each kernel's time beside its plain
@@ -180,9 +211,9 @@ version's, the least time the card could take for the same work, and the
 one PyTorch call that computes the same function where there is one; K1 and
 K2 and the trilinear kernels at the training chunk, the other shapes under
 `ms_by_shape`, phase 13's shapes among them; the launches of every path,
-phase 14's among them), then
+those of phases 14 and 15 among them), then
 the last line {"ok": true, "device": {...}}. Any failed check raises
-(non-zero exit); checks of phases 1b and 4-14 raise after phase 14, so one
+(non-zero exit); checks of phases 1b and 4-15 raise after phase 15, so one
 run reports them all.
 """
 
@@ -337,6 +368,34 @@ IMAGE_SIZE = 128
 # the thesis curriculum's stage 0: batch 24 at 32^2, 48 + 48 samples,
 # unchunked, so K1 and K2 take 24 x 49,152 points a call
 STAGE0_N = 32 * 32 * 48
+CHUNK_N = IMAGE_SIZE * IMAGE_SIZE // 16 * 48  # a ray chunk of a 128^2 step: 16 chunks
+# Trainer.evaluate's render (128^2, 96 + 96 samples) under stage 0's
+# ray_chunks (none): a whole view's points a call
+EVAL_N = IMAGE_SIZE * IMAGE_SIZE * 96
+DP_RANK_BATCH = 6  # 15a: the thesis stage-2 step's batch a rank (global 12)
+# K1's shapes held against its plain version in phase 1 (label, B, N; Din
+# 3, L 4): every (B, N) a main path gives it, phase 15's ranks included
+# (`check_film_shapes` holds their launches to this list)
+FWD_SHAPES = [
+    ("thesis render", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
+    ("training chunk", 12, CHUNK_N),  # also stage 0 a rank in 15c: 12 x 32^2 x 48
+    ("stage-0 batch", 24, STAGE0_N),
+    ("main-path ray chunk", 2, CHUNK_N),
+    # 15a's step and stage 1 a rank in 15c (6 views, 64^2 in 4 chunks)
+    ("data-parallel rank chunk", DP_RANK_BATCH, CHUNK_N),
+    # 15c's eval at stage 0: each rank's 24 views of the fid subset in
+    # render batches of 16 and 8
+    ("data-parallel eval", 16, EVAL_N),
+    ("data-parallel eval tail", 8, EVAL_N),
+    ("ragged", 2, 1000)]
+# K2's, in phase 4: the steps' shapes of FWD_SHAPES (the eval takes no grad)
+BWD_SHAPES = [
+    ("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48), ("training chunk", 12, CHUNK_N),
+    ("stage-0 batch", 24, STAGE0_N), ("data-parallel rank chunk", DP_RANK_BATCH, CHUNK_N),
+    ("ragged", 2, 1000)]
+# the plain versions past this many points a call run over slices of the
+# batch (the fp64 sums of 16 x EVAL_N points would not fit on the card)
+PLAIN_SLICE_POINTS = 4 * IMAGE_SIZE * IMAGE_SIZE * 48
 PCL_POINTS = 2048
 # Phase 10: the fixture the trainer reads (the port's writer, on the card):
 # 65,536 points a cloud, so num_points_ratio 1.0 gives the stage-2 bench's
@@ -515,6 +574,16 @@ def voxel_kernel_inputs(B: int, N: int, seed: int, device, din: int = 32, L: int
             for k, v in arrays.items()}
 
 
+def batch_slices(inp: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
+    """`inp` cut along the batch into slices of at most PLAIN_SLICE_POINTS
+    points (one slice when it is smaller): the per-view inputs sliced, the
+    weights shared."""
+    B, N, _ = inp["points"].shape
+    step = max(1, min(B, PLAIN_SLICE_POINTS // N))
+    return [{k: v[lo:lo + step] if k in ("points", "freq", "phase") else v
+             for k, v in inp.items()} for lo in range(0, B, step)]
+
+
 def check_kernel(label: str, inp: dict[str, torch.Tensor], phase: str = "phase 1",
                  bounds=(KERNEL_LOW_TOL, KERNEL_MEAN_TOL, KERNEL_Q999_TOL,
                          KERNEL_VS_PLAIN)) -> tuple[float, str | None]:
@@ -525,7 +594,11 @@ def check_kernel(label: str, inp: dict[str, torch.Tensor], phase: str = "phase 1
     At freq 25-45 the max over ~1e6 points is set by the plain version's
     own summation noise, so the script also sums the same bf16-rounded math
     in fp64 and holds the kernel no further from it than the fp32 plain
-    version is (see the bounds at the top).
+    version is (see the bounds at the top). The kernel runs on the whole
+    batch; past PLAIN_SLICE_POINTS points the plain versions run over
+    slices of it (`batch_slices`), and the readings join: the max and the
+    mean over all points (the slices are equal), the largest slice's
+    p99.9.
     """
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
         film_siren_mlp,
@@ -534,32 +607,44 @@ def check_kernel(label: str, inp: dict[str, torch.Tensor], phase: str = "phase 1
     )
 
     out = film_siren_mlp(*inp.values())
-    plain = film_siren_mlp_folded(*inp.values())
-    exact = film_siren_mlp_folded(*inp.values(), accum_dtype=torch.float64)
-    err = (out - plain).abs().flatten()
-    q999 = torch.quantile(err[:16_000_000], 0.999).item()
-    k64 = (out - exact).abs().max().item()
-    p64 = (plain - exact).abs().max().item()
-    err_ref = (out - film_siren_mlp_reference(*inp.values())).abs().max().item()
     low = dict(inp, freq=inp["freq"] / 30.0)
-    err_low = (film_siren_mlp(*low.values())
-               - film_siren_mlp_folded(*low.values())).abs().max().item()
+    out_low = film_siren_mlp(*low.values())
+    finite = bool(torch.isfinite(out).all())
+    worst = dict(err=0.0, q999=0.0, k64=0.0, p64=0.0, err_ref=0.0, err_low=0.0)
+    means, lo = [], 0
+    for part in batch_slices(inp):
+        b = part["points"].shape[0]
+        k, k_low = out[lo:lo + b], out_low[lo:lo + b]
+        lo += b
+        plain = film_siren_mlp_folded(*part.values())
+        err = (k - plain).abs().flatten()
+        means.append(err.mean().item())
+        exact = film_siren_mlp_folded(*part.values(), accum_dtype=torch.float64)
+        reading = dict(
+            err=err.max().item(), q999=torch.quantile(err[:16_000_000], 0.999).item(),
+            k64=(k - exact).abs().max().item(), p64=(plain - exact).abs().max().item(),
+            err_ref=(k - film_siren_mlp_reference(*part.values())).abs().max().item(),
+            err_low=(k_low - film_siren_mlp_folded(*dict(
+                part, freq=part["freq"] / 30.0).values())).abs().max().item())
+        worst = {name: max(worst[name], value) for name, value in reading.items()}
+        del plain, err, exact
+    mean = float(np.mean(means))
     B, N, din = inp["points"].shape
     low_tol, mean_tol, q999_tol, vs_plain = bounds
-    print(f"{phase} [{label}] B={B} N={N} Din={din} L={inp['freq'].shape[1] // 256}: "
+    sliced = f", plain versions over {len(means)} slices" if len(means) > 1 else ""
+    print(f"{phase} [{label}] B={B} N={N} Din={din} L={inp['freq'].shape[1] // 256}{sliced}: "
           f"freq/30: max|kernel - folded| "
-          f"{err_low:.3e} (bound {low_tol}); freq 25-45: max|kernel - folded| "
-          f"{err.max().item():.3e}, mean {err.mean().item():.3e} (bound "
-          f"{mean_tol}), p99.9 {q999:.3e} (bound {q999_tol}), "
-          f"max|kernel - fp64-sum| {k64:.3e} vs max|folded - fp64-sum| {p64:.3e} "
-          f"(ratio {k64 / p64:.3f}, bound {vs_plain}), "
-          f"max|kernel - fp32 exact-sin ref| {err_ref:.3e}")
+          f"{worst['err_low']:.3e} (bound {low_tol}); freq 25-45: max|kernel - folded| "
+          f"{worst['err']:.3e}, mean {mean:.3e} (bound "
+          f"{mean_tol}), p99.9 {worst['q999']:.3e} (bound {q999_tol}), "
+          f"max|kernel - fp64-sum| {worst['k64']:.3e} vs max|folded - fp64-sum| "
+          f"{worst['p64']:.3e} (ratio {worst['k64'] / worst['p64']:.3f}, bound {vs_plain}), "
+          f"max|kernel - fp32 exact-sin ref| {worst['err_ref']:.3e}")
     failure = None
-    if not (torch.isfinite(out).all() and err_low < low_tol
-            and err.mean().item() < mean_tol and q999 < q999_tol
-            and k64 <= vs_plain * p64):
+    if not (finite and worst["err_low"] < low_tol and mean < mean_tol
+            and worst["q999"] < q999_tol and worst["k64"] <= vs_plain * worst["p64"]):
         failure = f"{phase}: kernel disagrees with its plain version at {label}"
-    return err.max().item(), failure
+    return worst["err"], failure
 
 
 def timed_row(phase: str, label: str, B: int, N: int, fn, plain_fn, bound_ms: float,
@@ -583,30 +668,30 @@ def shape_row(timed: dict, main: str) -> dict:
 
 
 def phase1_kernel(device) -> dict:
-    """Kernel vs plain folded at the main path's shapes; returns the JSON row
-    (times at the training chunk, where most of K1's launches run)."""
+    """Kernel vs plain folded at the main paths' shapes (FWD_SHAPES; the
+    plain version's time past PLAIN_SLICE_POINTS is that of its slices);
+    returns the JSON row (times at the training chunk, where most of K1's
+    launches run)."""
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
         film_siren_mlp,
         film_siren_mlp_folded,
     )
 
-    chunk_n = IMAGE_SIZE * IMAGE_SIZE // 16 * 48
-    shapes = [("thesis render", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
-              ("training chunk", 12, chunk_n), ("stage-0 batch", 24, STAGE0_N),
-              ("main-path ray chunk", 2, chunk_n), ("ragged", 2, 1000)]
     worst, timed = 0.0, {}
     with torch.no_grad():
-        for label, B, N in shapes:
+        for label, B, N in FWD_SHAPES:
             inp = kernel_inputs(B, N, seed=0, device=device)
             err, failure = check_kernel(label, inp)
             if failure:
                 raise AssertionError(failure)
             worst = max(worst, err)
+            parts = batch_slices(inp)
             timed[label] = timed_row(
                 "phase 1", label, B, N, lambda: film_siren_mlp(*inp.values()),
-                lambda: film_siren_mlp_folded(*inp.values()), *film_bound(B, N, 4, 3),
-                20 if B * N > 100_000 else 50)
-            del inp
+                lambda: [film_siren_mlp_folded(*part.values()) for part in parts],
+                *film_bound(B, N, 4, 3), 20 if B * N > 100_000 else 50)
+            del inp, parts
+            torch.cuda.empty_cache()
     return dict(name="film_siren_fwd", route="cuda",
                 source="conditioned_nerf_gan_torch/csrc/film_siren_fwd.cu",
                 replaces="conditioned_nerf_gan_tpu/ops/pallas/film_siren.py:156",
@@ -920,18 +1005,16 @@ def check_bwd(label: str, inp: dict, g: torch.Tensor, failures: list, phase: str
 
 
 def phase4_bwd(device, failures: list) -> dict:
-    """Backward kernel vs the plain VJP at the three shapes; returns the
-    JSON row (times at the training chunk, the main path's shape)."""
+    """Backward kernel vs the plain VJP at the steps' shapes (BWD_SHAPES);
+    returns the JSON row (times at the training chunk, the main path's
+    shape)."""
     from conditioned_nerf_gan_torch.ops.kernels.film_siren import (
         film_siren_mlp_bwd,
         film_siren_mlp_folded_vjp,
     )
 
-    shapes = [("study", 2, IMAGE_SIZE * IMAGE_SIZE * 48),
-              ("training chunk", 12, IMAGE_SIZE * IMAGE_SIZE // 16 * 48),
-              ("stage-0 batch", 24, STAGE0_N), ("ragged", 2, 1000)]
     worst, timed = 0.0, {}
-    for label, B, N in shapes:
+    for label, B, N in BWD_SHAPES:
         inp, g = bwd_inputs(B, N, seed=0, device=device)
         worst = max(worst, check_bwd(label, inp, g, failures))
         timed[label] = timed_row(
@@ -2279,7 +2362,7 @@ def phase10_trainer(device, work: Path, failures: list) -> dict:
     torch.cuda.empty_cache()
     return dict(trainer=thesis_counts, resumed=resume_counts, dg_trainer=dg_counts,
                 trainer_infer=infer_counts, stages=stages, dg_stages=dg_stages,
-                thesis_run=run1, dg_run=run3, dataset=ds_root)
+                thesis_run=run1, dg_run=run3, dataset=ds_root, thesis_losses=ref_hist)
 
 
 EVAL_FIXTURE = dict(n_cars=6, n_views=12, img_size=128, n_points=65536,
@@ -3488,8 +3571,8 @@ def phase14_cond_trainer(device, dataset: Path, work: Path, failures: list) -> t
 
     make_step = trainer_module.make_train_step
 
-    def spying_make_step(config):
-        step = make_step(config)
+    def spying_make_step(config, **kwargs):
+        step = make_step(config, **kwargs)
 
         def spied(state, batch, *args):
             seen.append(tuple(batch["cond"].shape) if "cond" in batch else None)
@@ -3664,6 +3747,786 @@ def phase14_remaining_models(device, dataset: Path, work: Path, failures: list) 
     return out
 
 
+DP_TIMED_STEPS = 2
+DP_STAGE_STEPS = 3  # 15b, 15c: phase 10's compressed thesis curriculum
+DP_RANK_TIMEOUT = 600  # seconds a spawned rank may take
+SHARD_SLABS = 2  # 15d: slabs of 64 rows at 128^2, both on the one card
+CHAMFER_POINTS = 65536
+VOXEL_RENDER = dict(side=64, img=128, steps=256)
+ORBIT_FRAMES = 8
+TOOL_PIXELS_APART = 0.01  # share of pixels a near-face nearest lookup may flip [0 on the CPU]
+GEOLOSS_TOL = 1e-3  # |kernel - plain| / |plain| of the replayed loss
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(fn, world: int, *args) -> None:
+    """fn(rank, world, port, *args) in `world` spawned processes; raises if
+    a rank fails or outlasts DP_RANK_TIMEOUT (then every rank is killed)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world, free_port(), *args), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + DP_RANK_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"{fn.__name__}: ranks still running after "
+                                   f"{DP_RANK_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in ctx.processes]
+    if any(codes):
+        raise RuntimeError(f"{fn.__name__}: rank exit codes {codes}")
+
+
+def record_film_shapes() -> dict:
+    """From now on note the (B, N, L, Din) of every K1 and K2 launch in this
+    process (the launchers' C functions wrapped); returns the sets, by
+    kernel."""
+    from conditioned_nerf_gan_torch.ops.kernels import film_siren
+
+    shapes = {"film_siren_fwd": set(), "film_siren_bwd": set()}
+    c_function = film_siren._c_function
+
+    def recording(library, symbol, n_pointers, n_ints):
+        fn = c_function(library, symbol, n_pointers, n_ints)
+        if symbol not in shapes:
+            return fn
+
+        def launch(*args):  # the pointers, then B, N, L, Din, ...
+            shapes[symbol].add(tuple(args[n_pointers:n_pointers + 4]))
+            return fn(*args)
+
+        return launch
+
+    film_siren._c_function = recording
+    return shapes
+
+
+def check_film_shapes(phase: str, recorded: list, failures: list) -> None:
+    """Every (B, N) at which a rank launched K1 or K2 (`record_film_shapes`,
+    as JSON lists) is one phase 1 or phase 4 held against the plain version
+    (FWD_SHAPES, BWD_SHAPES at Din 3, L 4)."""
+    checked = {"film_siren_fwd": {(B, N, 4, 3) for _, B, N in FWD_SHAPES},
+               "film_siren_bwd": {(B, N, 4, 3) for _, B, N in BWD_SHAPES}}
+    for kernel, allowed in checked.items():
+        seen = sorted({tuple(shape) for shapes in recorded for shape in shapes[kernel]})
+        print(f"{phase}: {kernel} launched at (B, N, L, Din) {seen}, each checked against "
+              f"its plain version: {set(seen) <= allowed}")
+        if not set(seen) <= allowed:
+            failures.append(f"{phase}: {kernel} launched at unchecked shapes "
+                            f"{sorted(set(seen) - allowed)}")
+
+
+class AllReduceCounter:
+    """`average_gradients`'s calls as a launch counter (`take_counts`,
+    `TrainerProbe`): one all-reduce a call."""
+
+    @property
+    def launches(self) -> int:
+        from conditioned_nerf_gan_torch.parallel import mesh
+
+        return mesh.average_gradients.calls
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        from conditioned_nerf_gan_torch.parallel import mesh
+
+        mesh.average_gradients.calls = value
+
+
+def replicas_equal(nets, group) -> bool:
+    """Every rank's params of `nets` bit-equal to rank 0's (a broadcast of
+    rank 0's and a comparison on each rank, the verdicts min-reduced)."""
+    import torch.distributed as dist
+
+    flags = []
+    for net in nets:
+        flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+        ref = flat.clone()
+        dist.broadcast(ref, src=0, group=group)
+        flags.append(torch.equal(flat, ref))
+    verdict = torch.tensor([float(all(flags))], device=flat.device)
+    dist.all_reduce(verdict, op=dist.ReduceOp.MIN, group=group)
+    return bool(verdict.item() == 1.0)
+
+
+def fp32_twins(bench, init: dict, device):
+    """G with its initial weights under the policy, E and D at
+    compute_dtype None (phase 5's fp32 path) with theirs, on `device`."""
+    from conditioned_nerf_gan_torch.infer import build_models
+    from conditioned_nerf_gan_torch.models import make_discriminator
+
+    G = copy.deepcopy(bench.generator)
+    G.load_state_dict(init["G"])
+    E = build_models(dict(bench.meta, compute_dtype=None))[1]
+    E.load_state_dict(init["E"])
+    D = make_discriminator(bench.meta["discriminator"])
+    D.load_state_dict(init["D"])
+    return [net.to(device) for net in (G, E, D)]
+
+
+def phase15_step_rank(rank: int, world: int, port: int, work: str, device: str) -> None:
+    """15a, one rank: the thesis stage-2 step on its shard (DP_RANK_BATCH)
+    at full width, gloo over CUDA tensors on the one card: a warm-up and
+    DP_TIMED_STEPS timed steps (s/step, K1/K2 launches, the all-reduces'
+    calls, floats and ms by CUDA events, the replicas bit-equal after each),
+    then one step of the fp32 twins whose averaged pre-clip grads and
+    metrics rank 0 saves for the one-process reference. `device` is every
+    rank's (one card named for all: the ranks share it)."""
+    import torch.distributed as dist
+
+    from conditioned_nerf_gan_torch.parallel import (
+        initialize_distributed,
+        replicate,
+        shutdown_distributed,
+    )
+    from conditioned_nerf_gan_torch.training import (
+        build_stage_bench,
+        create_train_state,
+        make_train_step,
+    )
+    from conditioned_nerf_gan_torch.training.trainer import step_seed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    context = initialize_distributed(f"localhost:{port}", world, rank, device=device)
+    device, group = context.device, dist.group.WORLD
+    all_reduce, events = dist.all_reduce, []
+
+    def timed_all_reduce(tensor, *args, **kwargs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = all_reduce(tensor, *args, **kwargs)
+        stop.record()
+        events.append((start, stop, tensor.numel()))
+        return out
+
+    dist.all_reduce = timed_all_reduce
+    counters = kernel_counters()[:2]
+    shapes = record_film_shapes()
+    bench = build_stage_bench(stage=2, step=TRAIN_STEP)
+    cfg = bench.config
+    nets = dict(G=bench.generator, E=bench.encoder, D=bench.discriminator)
+    init = {k: copy.deepcopy(net.state_dict()) for k, net in nets.items()}
+    for net in nets.values():
+        net.to(device)
+    state = create_train_state(nets["G"], nets["E"], nets["D"], cfg)
+    replicate(state, group)
+    step = make_train_step(cfg, group=group)
+    b = DP_RANK_BATCH
+    shard = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).to(device)
+             for k, v in bench.batch.items()}
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + DP_TIMED_STEPS):
+        rng = torch.Generator(device=device).manual_seed(step_seed(0, i, rank))
+        take_counts(counters)
+        events.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, shard, rng, bench.alpha, bench.nerf_noise)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = take_counts(counters)
+        ar = [(a.elapsed_time(z), n) for a, z, n in events]
+        dist.all_reduce = all_reduce
+        equal = replicas_equal(nets.values(), group)
+        dist.all_reduce = timed_all_reduce
+        rows.append(dict(step=i, s=seconds, launches=launches,
+                         design=design_launches(cfg)[:2], all_reduce_ms=[m for m, _ in ar],
+                         all_reduce_floats=[n for _, n in ar], equal=equal,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         losses={k: float(v) for k, v in metrics.items()}))
+        print(f"phase 15a rank {rank} step {i}{' (warm-up)' if i == 0 else ''}: "
+              f"{seconds:.4f} s, K1 {launches[0]} K2 {launches[1]} (design "
+              f"{rows[-1]['design']}), {len(ar)} all-reduces of "
+              f"{[n for _, n in ar]} floats in {sum(m for m, _ in ar):.3f} ms "
+              f"({', '.join(f'{m:.3f}' for m, _ in ar)}), replicas bit-equal {equal}, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in rows[-1]["losses"].items()), flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the fp32 twins' one step: averaged pre-clip grads and metrics
+    twins = fp32_twins(bench, init, device)
+    state = create_train_state(*twins, cfg)
+    replicate(state, group)
+    grads = record_grads(state)
+    rng = torch.Generator(device=device).manual_seed(step_seed(0, 0, rank))
+    _, metrics = make_train_step(cfg, group=group)(state, shard, rng, bench.alpha,
+                                                     bench.nerf_noise)
+    if rank == 0:
+        torch.save({"grads": {k: v.cpu() for k, v in grads.items()},
+                    "metrics": {k: float(v) for k, v in metrics.items()}},
+                   Path(work) / "fp32_ranks.pt")
+    (Path(work) / f"rank{rank}.json").write_text(json.dumps(rows))
+    (Path(work) / f"shapes{rank}.json").write_text(
+        json.dumps({k: sorted(v) for k, v in shapes.items()}))
+    shutdown_distributed()
+
+
+def thread_reference_step(cfg, nets_by_rank: list, shards: list, seeds: list, alpha: float,
+                          nerf_noise: float) -> tuple[dict, dict]:
+    """The one-process reference of a data-parallel step: each rank's state
+    and shard in a thread of its own, the grads of each optimizer (and the
+    metrics riding with them) summed in rank order and divided by the
+    world size where the step would all-reduce them, the same ClippedAdam
+    steps; returns rank 0's pre-clip grads and metrics."""
+    import threading
+
+    from conditioned_nerf_gan_torch.training import create_train_state, make_train_step
+    from conditioned_nerf_gan_torch.training import train_step as train_step_module
+
+    world = len(nets_by_rank)
+    barrier, slots = threading.Barrier(world), [None] * world
+
+    @torch.no_grad()
+    def average_in_threads(optimizer, rank, extras=()):
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        slots[rank] = torch.cat(
+            [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+             for p in params] + [e.detach().reshape(-1).float() for e in extras])
+        barrier.wait()
+        total = slots[0]
+        for other in slots[1:]:
+            total = total + other
+        flat = total / world
+        barrier.wait()
+        offset = 0
+        for p in params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p).clone()
+            offset += p.numel()
+        return list(flat[offset:].clone().unbind())
+
+    states = [create_train_state(*nets, cfg) for nets in nets_by_rank]
+    grads = record_grads(states[0])
+    results, errors = [None] * world, []
+
+    def run(rank):
+        try:
+            rng = torch.Generator(device=shards[rank]["img"].device).manual_seed(seeds[rank])
+            results[rank] = make_train_step(cfg, group=rank)(states[rank], shards[rank], rng,
+                                                            alpha, nerf_noise)[1]
+            torch.cuda.synchronize()
+        except BaseException as exc:  # re-raised in the caller's thread
+            errors.append(exc)
+            barrier.abort()
+
+    saved = train_step_module.average_gradients
+    train_step_module.average_gradients = average_in_threads
+    try:
+        threads = [threading.Thread(target=run, args=(r,)) for r in range(world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        train_step_module.average_gradients = saved
+    if errors:
+        raise errors[0]
+    return grads, {k: float(v) for k, v in results[0].items()}
+
+
+def phase15_two_ranks(device, work: Path, failures: list) -> tuple:
+    """15a: two ranks on the one card, gloo over CUDA tensors (NCCL
+    refuses two ranks on one device): the ranks' readings, their replicas
+    bit-equal after each step, K1/K2 at the design count a rank a step,
+    then the fp32 twins' averaged grads and metrics against the
+    one-process reference at phase 5's bounds. Returns the ranks' K1 and
+    K2 launches over the warm-up and timed steps."""
+    from conditioned_nerf_gan_torch.training import build_stage_bench
+    from conditioned_nerf_gan_torch.training.trainer import step_seed
+
+    out = work / "15a"
+    out.mkdir()
+    t0 = time.perf_counter()
+    spawn_ranks(phase15_step_rank, 2, str(out), f"{device.type}:0")
+    print(f"phase 15a: two ranks ran in {time.perf_counter() - t0:.2f} s (start-up, bench "
+          "builds and steps)")
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    k1 = k2 = 0
+    for r, rows in enumerate(ranks):
+        timed = rows[1:]
+        ms = [sum(row["all_reduce_ms"]) for row in timed]
+        steps = ", ".join(f"{row['s']:.4f}" for row in timed)
+        print(f"phase 15a rank {r}: {np.mean([row['s'] for row in timed]):.4f} s/step "
+              f"(steps {steps}), all-reduce "
+              f"{np.mean(ms):.3f} ms a step ({len(timed[0]['all_reduce_ms'])} calls, "
+              f"{sum(timed[0]['all_reduce_floats'])} floats), peak "
+              f"{max(row['peak_gib'] for row in rows):.3f} GiB")
+        for row in rows:
+            k1, k2 = k1 + row["launches"][0], k2 + row["launches"][1]
+            if list(row["launches"]) != list(row["design"]):
+                failures.append(f"phase 15a rank {r} step {row['step']}: launches "
+                                f"{row['launches']}, design {row['design']}")
+            if not row["equal"]:
+                failures.append(f"phase 15a: the replicas differ after step {row['step']}")
+            if len(row["all_reduce_ms"]) != 3:
+                failures.append(f"phase 15a rank {r} step {row['step']}: "
+                                f"{len(row['all_reduce_ms'])} all-reduces, design 3")
+            if not all(np.isfinite(v) for v in row["losses"].values()):
+                failures.append(f"phase 15a rank {r}: non-finite losses {row['losses']}")
+    if ranks[0][-1]["losses"] != ranks[1][-1]["losses"]:
+        failures.append("phase 15a: the ranks' averaged metrics differ")
+    check_film_shapes("phase 15a", [json.loads((out / f"shapes{r}.json").read_text())
+                                    for r in range(2)], failures)
+
+    # the fp32 twins against the one-process reference
+    t0 = time.perf_counter()
+    bench = build_stage_bench(stage=2, step=TRAIN_STEP)
+    init = {"G": bench.generator.state_dict(), "E": bench.encoder.state_dict(),
+            "D": bench.discriminator.state_dict()}
+    b = DP_RANK_BATCH
+    shards = [{k: torch.from_numpy(v[r * b:(r + 1) * b]).to(device)
+               for k, v in bench.batch.items()} for r in range(2)]
+    grads, metrics = thread_reference_step(
+        bench.config, [fp32_twins(bench, init, device) for _ in range(2)], shards,
+        [step_seed(0, 0, r) for r in range(2)], bench.alpha, bench.nerf_noise)
+    got = torch.load(out / "fp32_ranks.pt", weights_only=True)
+    print(f"phase 15a: the one-process reference (two threads, fp32 twins) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for k, ref in metrics.items():
+        rel = abs(got["metrics"][k] - ref) / max(abs(ref), 1e-30)
+        print(f"phase 15a (fp32 path): {k} two ranks {got['metrics'][k]:.7f} one process "
+              f"{ref:.7f} rel {rel:.3e} (bound {STEP_LOSS_TOL})")
+        if not rel <= STEP_LOSS_TOL:
+            failures.append(f"phase 15a: {k} differs from the one-process reference")
+    for net, ref in grads.items():
+        rel = ((got["grads"][net].to(device) - ref).norm() / ref.norm()).item()
+        print(f"phase 15a (fp32 path): {net} grads |two ranks - one process|_2/|one "
+              f"process|_2 {rel:.3e} (bound {STEP_GRAD_TOL})")
+        if not rel <= STEP_GRAD_TOL:
+            failures.append(f"phase 15a: {net} grads differ from the one-process reference")
+    del bench, shards, grads
+    torch.cuda.empty_cache()
+    return k1, k2
+
+
+def phase15_nccl_world1(device, trainer: dict, work: Path, failures: list) -> tuple:
+    """15b: the train CLI with --distributed at world size 1 (NCCL on the
+    card, in this process): thesis stages 0 and 1 of phase 10's
+    curriculum, DP_STAGE_STEPS steps each; K1/K2 and the all-reduces a
+    step against the design (one per optimizer step), the losses against
+    phase 10's run without the flags. Returns the launches over the run."""
+    import shutil
+
+    from conditioned_nerf_gan_torch import train
+
+    run = work / "15b"
+    run.mkdir()
+    shutil.copy(trainer["thesis_run"] / "curriculum.json", run / "curriculum.json")
+    counters = (*kernel_counters()[:2], AllReduceCounter())
+    stop = 2 * DP_STAGE_STEPS - 1
+
+    def design(cfg):
+        return (*design_launches(cfg)[:2], 3 if cfg.enable_discriminator else 2)
+
+    take_counts(counters)
+    t0 = time.perf_counter()
+    with TrainerProbe(counters, design=design) as probe:
+        rc = train.main(["-o", str(run), "--distributed", "--coordinator",
+                         f"localhost:{free_port()}", "--num_processes", "1", "--process_id",
+                         "0", "--stop_step", str(stop), "-p", str(DP_STAGE_STEPS), "-s", "1000",
+                         "-e", "1000", "--device", str(device)])
+    counts = take_counts(counters)
+    seconds = time.perf_counter() - t0
+    stages = print_stages("phase 15b", probe.steps, [0, DP_STAGE_STEPS], failures,
+                          names=("K1", "K2", "all-reduces"))
+    hist = probe.trainers[0].histories
+    worst = 0.0
+    for k, ref in trainer["thesis_losses"].items():
+        for s in range(stop + 1):
+            worst = max(worst, abs(hist[k][s] - ref[s]) / max(abs(ref[s]), 1e-30))
+    print(f"phase 15b: NCCL at world size 1: rc {rc} in {seconds:.2f} s; launches over the "
+          f"run K1 {counts[0]}, K2 {counts[1]}, all-reduces {counts[2]} ({counts[2] / (stop + 1):.1f} "
+          f"a step, design 3: one per optimizer step); largest relative loss difference "
+          f"from phase 10's run without the flags {worst:.3e} (bound {RESUME_LOSS_TOL})")
+    if rc != 0 or not worst <= RESUME_LOSS_TOL or len(stages) != 2:
+        failures.append(f"phase 15b: rc {rc}, {len(stages)} stages, losses {worst:.3e} from "
+                        "phase 10's run")
+    del probe, hist
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase15_cli_rank(rank: int, world: int, port: int, work: str, argv: list) -> None:
+    """15c, one rank of the train CLI (gloo, both ranks on the one card):
+    the steps' K1/K2 and all-reduce launches against the design and this
+    rank's checkpoint saves, into work/{rank}.json."""
+    from conditioned_nerf_gan_torch import train
+    from conditioned_nerf_gan_torch.training import trainer as trainer_module
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    save, saves = trainer_module.save_checkpoint, []
+
+    def counted_save(path, step, *args, **kwargs):
+        saves.append(step)
+        return save(path, step, *args, **kwargs)
+
+    trainer_module.save_checkpoint = counted_save
+    counters = (*kernel_counters()[:2], AllReduceCounter())
+    shapes = record_film_shapes()
+    with TrainerProbe(counters, design=lambda cfg: (*design_launches(cfg)[:2], 3)) as probe:
+        rc = train.main([*argv, "--coordinator", f"localhost:{port}", "--num_processes",
+                         str(world), "--process_id", str(rank)])
+    (Path(work) / f"{rank}.json").write_text(json.dumps(dict(
+        rc=rc, saves=saves, steps=[dict(step=s["step"], s=s["s"], launches=s["launches"],
+                                        design=s["design"]) for s in probe.steps],
+        shapes={k: sorted(v) for k, v in shapes.items()})))
+    if rc:
+        raise SystemExit(rc)
+
+
+def phase15_two_rank_cli(device, trainer: dict, work: Path, failures: list) -> tuple:
+    """15c: the train CLI on two ranks on the card (gloo): the thesis preset
+    (phase 10's curriculum at half its batch a rank) across stage 0 -> 1
+    with one eval (fid.txt's one line from rank 0,
+    scored over both ranks' image shards), each checkpoint written once,
+    then a two-rank resume from the eval's checkpoint that replays the next
+    step within RESUME_LOSS_TOL. Returns K1 and K2 over both runs' ranks."""
+    from conditioned_nerf_gan_torch.config import (
+        curriculum_from_json,
+        curriculum_to_json,
+        extract_metadata,
+    )
+    from conditioned_nerf_gan_torch.data import ShapeNetDataset
+
+    first, resumed = work / "15c", work / "15c_resumed"
+    first.mkdir()
+    # phase 10's curriculum with each stage's batch a rank halved: the
+    # global batch stays the preset's, and each rank's shard of the fixture
+    # (42 training views) still fills a batch
+    cur = curriculum_from_json(trainer["thesis_run"] / "curriculum.json")
+    for key in [k for k in cur if isinstance(k, int)]:
+        cur[key]["batch_size"] //= 2
+    curriculum_to_json(cur, first / "curriculum.json")
+    stop = DP_STAGE_STEPS  # stage 0's steps, then stage 1's first
+    flags = ["--stop_step", str(stop), "-p", "1", "-s", "1000", "--device", str(device)]
+    runs = ((first, ["-o", str(first), "-e", str(DP_STAGE_STEPS), *flags]),
+            (resumed, ["-o", str(resumed), "-l",
+                       str(first / "checkpoints" / f"{DP_STAGE_STEPS - 1}.pt"), "-e", "1000",
+                       *flags]))
+    k1 = k2 = 0
+    reports = {}
+    for run, argv in runs:
+        logs = work / f"{run.name}_ranks"
+        logs.mkdir()
+        t0 = time.perf_counter()
+        spawn_ranks(phase15_cli_rank, 2, str(logs), argv)
+        reports[run.name] = [json.loads((logs / f"{r}.json").read_text()) for r in range(2)]
+        print(f"phase 15c [{run.name}]: two ranks in {time.perf_counter() - t0:.2f} s")
+        expect_steps = list(range(stop + 1)) if run is first else [stop]
+        for r, report in enumerate(reports[run.name]):
+            if [s["step"] for s in report["steps"]] != expect_steps:
+                failures.append(f"phase 15c [{run.name}] rank {r}: steps "
+                                f"{[s['step'] for s in report['steps']]}, not {expect_steps}")
+            for s in report["steps"]:
+                k1, k2 = k1 + s["launches"][0], k2 + s["launches"][1]
+                if list(s["launches"]) != list(s["design"]):
+                    failures.append(f"phase 15c [{run.name}] rank {r} step {s['step']}: "
+                                    f"launches {s['launches']}, design {s['design']}")
+            steps = ", ".join(f"{s['step']} {s['s']:.4f} s K1/K2/all-reduces "
+                              + "/".join(map(str, s["launches"])) for s in report["steps"])
+            print(f"phase 15c [{run.name}] rank {r}: steps {steps}; checkpoints saved "
+                  f"{report['saves']}")
+    check_film_shapes("phase 15c", [report["shapes"] for run in reports.values()
+                                    for report in run], failures)
+    saves = [report["saves"] for report in reports[first.name]]
+    written = sorted(p.name for p in (first / "checkpoints").iterdir())
+    meta = extract_metadata(curriculum_from_json(first / "curriculum.json"), 0)
+    fidset = ShapeNetDataset(meta["dataset"]["path"], meta["fid"]["target_size"],
+                             meta["fid"]["subset"], meta, load_voxel=False, load_pcl=False,
+                             dataset_mode="test", load_img=False, load_depth=False,
+                             load_cam=True, shuffle=False)
+    lines = [line.split() for line in (first / "fid.txt").read_text().splitlines()
+             if line and not line.startswith("#")]
+    shards = len(list((first / "evaluation").glob("*.png")))
+    print(f"phase 15c: checkpoints {written}, saved by rank 0 {saves[0]} and rank 1 "
+          f"{saves[1]}; fid.txt lines {lines}; evaluation PNGs {shards} of the fid "
+          f"subset's {len(fidset)}")
+    expect = [DP_STAGE_STEPS - 1, stop]
+    if (saves != [expect, []] or written != sorted(f"{s}.{x}" for s in expect
+                                                     for x in ("json", "pt"))):
+        failures.append(f"phase 15c: checkpoints {written} saved {saves}, not once each at "
+                        f"{expect} by rank 0")
+    if (len(lines) != 1 or int(lines[0][0]) != DP_STAGE_STEPS - 1
+            or not np.isfinite(float(lines[0][1])) or shards != len(fidset)):
+        failures.append(f"phase 15c: fid.txt {lines}, {shards} PNGs of {len(fidset)}")
+    a = json.loads((first / "checkpoints" / f"{stop}.json").read_text())
+    b = json.loads((resumed / "checkpoints" / f"{stop}.json").read_text())
+    worst = 0.0
+    for k in ("photometry_losses", "generator_losses", "discriminator_losses"):
+        rel = abs(b[k][stop] - a[k][stop]) / max(abs(a[k][stop]), 1e-30)
+        worst = max(worst, rel)
+        print(f"phase 15c resume {k}[{stop}]: {b[k][stop]:.7f} uninterrupted "
+              f"{a[k][stop]:.7f} (rel {rel:.3e})")
+    if not worst <= RESUME_LOSS_TOL:
+        failures.append(f"phase 15c: the two-rank resume's step {stop} is {worst:.3e} from "
+                        "the uninterrupted run's")
+    return k1, k2
+
+
+def newest_png(directory: Path) -> bytes:
+    """The newest PNG's bytes in `directory`; the file is removed (the infer
+    CLI stamps its names to the second)."""
+    newest = max(directory.glob("*.png"), key=lambda p: p.stat().st_mtime)
+    data = newest.read_bytes()
+    newest.unlink()
+    return data
+
+
+def phase15_sharded_render(device, trainer: dict, failures: list) -> tuple:
+    """15d: `render_ray_sharded` over [cuda:0] * SHARD_SLABS (slabs of 64
+    rows at 128^2, 48 + 48 samples) against the unsharded render on the
+    dense copy of phase 10's thesis checkpoint: bit-equal, K1 at the slabs'
+    design count; the same with the generator held on the CPU, so that the
+    slabs run on a replica on the card (a multi-card render's path), then
+    again after a param of the held generator changes (the replica
+    refreshed); then the infer CLI with --shard_rays --images on phase 10's
+    checkpoint, with one card unsharded, and with `shard_devices` naming
+    the card twice, through `render_ray_sharded`: the same grid bytes.
+    Returns the K1 launches of the library render and of the sharded CLI."""
+    from conditioned_nerf_gan_torch.infer import Inferencer, inference
+    from conditioned_nerf_gan_torch.infer.__main__ import main as infer_main
+    from conditioned_nerf_gan_torch.models.generator import RenderConfig
+    from conditioned_nerf_gan_torch.parallel import render, render_ray_sharded
+
+    counters = kernel_counters()[:1]
+    run = trainer["thesis_run"]
+    checkpoint = run / "checkpoints" / f"{THESIS_STOP}.pt"
+    dense = run.parent / f"{run.name}_dense"
+    if not dense.exists():
+        dense_copy(run, checkpoint)
+    inf = Inferencer(dense / "checkpoints" / checkpoint.name, device=device)
+    cfg = RenderConfig.from_metadata(inf.curriculum, perturb=False)
+    samples = [inf.valset[i] for i in range(2)]
+    z = inf.encode({"pcl": np.stack([s["pcl"] for s in samples])})
+    cams = torch.as_tensor(np.stack([s["cam2world"] for s in samples]), device=device)
+    slabs = [device] * SHARD_SLABS
+    held = copy.deepcopy(inf.generator).cpu()
+    with torch.no_grad():
+        take_counts(counters)
+        plain = inf.generator(z, cams, cfg, generator=None)
+        (k1_plain,) = take_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = render_ray_sharded(inf.generator, z, cams, cfg, slabs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        (k1_sharded,) = take_counts(counters)
+        replicated = render_ray_sharded(held, z, cams, cfg, slabs)
+        (k1_replica,) = take_counts(counters)
+        replica = render._REPLICAS[(id(held), str(torch.device(device.type, 0)))][1]
+        for net in (held, inf.generator):
+            net.siren.final_layer.bias[0] += 0.25
+        changed = inf.generator(z, cams, cfg, generator=None)
+        refreshed = render_ray_sharded(held, z, cams, cfg, slabs)
+        reused = render._REPLICAS[(id(held), str(torch.device(device.type, 0)))][1] is replica
+        take_counts(counters)
+    chunks = max(cfg.ray_chunks, 1) * 2
+    readings = {"sharded": (sharded, plain), "replica": (replicated, plain),
+                "replica refreshed": (refreshed, changed)}
+    equal = {k: [torch.equal(a, b) for a, b in zip(*pair)] for k, pair in readings.items()}
+    diff = {k: [(a - b).abs().max().item() for a, b in zip(*pair)]
+            for k, pair in readings.items()}
+    moved = (changed[0] - plain[0]).abs().max().item()
+    print(f"phase 15d: {SHARD_SLABS} slabs of {cfg.img_size // SHARD_SLABS} rows at "
+          f"{cfg.img_size}^2, {cfg.num_steps}+{cfg.num_steps} samples, ray_chunks "
+          f"{cfg.ray_chunks}: {seconds:.4f} s; bit-equal to the unsharded render: pixels "
+          f"{equal['sharded'][0]}, depth {equal['sharded'][1]} (max |sharded - unsharded| "
+          f"{diff['sharded'][0]:.3e}, {diff['sharded'][1]:.3e}); K1 {k1_sharded} (design "
+          f"{SHARD_SLABS * chunks}; unsharded {k1_plain}, design {chunks})")
+    print(f"phase 15d: the generator held on the CPU, the slabs on a replica on the card: "
+          f"bit-equal {equal['replica']} (max {diff['replica']}), K1 {k1_replica}; after a "
+          f"change of the held generator's head bias (the render moved by {moved:.3e}): "
+          f"bit-equal to the changed unsharded render {equal['replica refreshed']} (max "
+          f"{diff['replica refreshed']}), the replica reused {reused}")
+    for k, flags in equal.items():
+        if not all(flags):
+            failures.append(f"phase 15d: the {k} render is {diff[k]} from the unsharded one")
+    if (k1_sharded, k1_replica, k1_plain) != (SHARD_SLABS * chunks, SHARD_SLABS * chunks,
+                                              chunks):
+        failures.append(f"phase 15d: K1 launches {k1_sharded}/{k1_replica}/{k1_plain}")
+    if not (reused and moved > 0):
+        failures.append(f"phase 15d: replica reused {reused}, the change moved {moved}")
+    del inf, held, replica, plain, sharded, replicated, changed, refreshed
+    render._REPLICAS.clear()
+    torch.cuda.empty_cache()
+
+    argv = [str(checkpoint), "--images", "--num_imgs", "4", "--shard_rays", "--device",
+            str(device)]
+    grids, k1_cli = [], []
+    shard_devices = inference.shard_devices
+    try:
+        for devices in (None, slabs):
+            if devices:
+                inference.shard_devices = lambda device, img_size: devices
+            take_counts(counters)
+            rc = infer_main(argv)
+            k1_cli.append(take_counts(counters)[0])
+            grids.append(newest_png(run / "inference") if rc == 0 else b"")
+            if rc != 0:
+                failures.append(f"phase 15d: the --shard_rays CLI rc {rc}")
+    finally:
+        inference.shard_devices = shard_devices
+    print(f"phase 15d: infer CLI --shard_rays --images on checkpoint {THESIS_STOP}: "
+          f"{torch.cuda.device_count()} card, rendered unsharded: K1 {k1_cli[0]} (without the "
+          f"flag, phase 10: {trainer['trainer_infer'][0]}); with `shard_devices` naming the "
+          f"card twice: K1 {k1_cli[1]} (design {2 * trainer['trainer_infer'][0]}), the grid "
+          f"bytes equal {grids[0] == grids[1]}")
+    if (k1_cli != [trainer["trainer_infer"][0], 2 * trainer["trainer_infer"][0]]
+            or grids[0] != grids[1] or not grids[0]):
+        failures.append(f"phase 15d: the --shard_rays CLI K1 {k1_cli}, grids equal "
+                        f"{grids[0] == grids[1]}")
+    return k1_sharded, k1_cli[1]
+
+
+def phase15_tools(device, trainer: dict, failures: list) -> int:
+    """15e: the tools of A15 on the card against the host: chamfer over
+    2 x CHAMFER_POINTS points against scipy's cKDTree, the first-hit voxel
+    render of a 64^3 grid at 128^2 and 256 steps and the pcl2voxel orbit
+    AVI's frame 0 against the CPU, the geometry-loss replay on the dense
+    thesis checkpoint (K1) against the same replay with the plain K1, the
+    fixture exporter's render against the CPU. Returns geoloss's K1
+    launches."""
+    from scipy.spatial import cKDTree
+
+    from conditioned_nerf_gan_torch.data.synthetic import _make_car
+    from conditioned_nerf_gan_torch.tools import geoloss, geometry, pcl2voxel, voxel_render
+    from conditioned_nerf_gan_torch.tools.blender import fixture
+    from conditioned_nerf_gan_torch.tools.blender.camera_utils import (
+        BLENDER_CAM_FLIP,
+        blender_cam_pose,
+        sample_cam,
+    )
+    from conditioned_nerf_gan_torch.utils.video import read_avi
+
+    rng = np.random.default_rng(15)
+    a, b = (rng.uniform(-0.6, 0.6, (CHAMFER_POINTS, 3)).astype(np.float32) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = geometry.chamfer_distance(a, b, device=device)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = (cKDTree(b).query(a)[0] ** 2).mean() + (cKDTree(a).query(b)[0] ** 2).mean()
+    host_s = time.perf_counter() - t0
+    rel = abs(got - ref) / ref
+    print(f"phase 15e: chamfer 2 x {CHAMFER_POINTS}: card {got:.9e} in {seconds:.4f} s, "
+          f"cKDTree (fp64, host) {ref:.9e} in {host_s:.4f} s, rel {rel:.3e} (bound 1e-5)")
+    if not rel <= 1e-5:
+        failures.append(f"phase 15e: chamfer {got} against cKDTree's {ref}")
+
+    ds = trainer["dataset"]
+    car = sorted(p for p in ds.iterdir() if p.is_dir())[0]
+    vox = np.load(car / "voxel.npz")["voxel"].astype(np.float32)
+    cams = np.load(car / "cameras.npz")
+    cam = np.stack([cams["world_mat_inv_0"]]).astype(np.float32)
+    vol = np.ascontiguousarray(vox.transpose(2, 1, 0, 3))[None]
+    args = (VOXEL_RENDER["img"], 49.134342641202636, 0.2, 2.0, VOXEL_RENDER["steps"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = voxel_render.voxel_surface_render(torch.from_numpy(vol).to(device),
+                                             torch.from_numpy(cam).to(device), *args).cpu()
+    seconds = time.perf_counter() - t0
+    host = voxel_render.voxel_surface_render(torch.from_numpy(vol), torch.from_numpy(cam),
+                                             *args)
+    apart = ((card - host).abs().amax(-1) > 1e-6).float().mean().item()
+    print(f"phase 15e: voxel render of a {vox.shape[0]}^3 grid at {args[0]}^2, {args[-1]} "
+          f"steps: {seconds:.4f} s on the card; pixels apart from the CPU's {apart:.3e} "
+          f"(bound {TOOL_PIXELS_APART}); covered {(host < 0.97).any(-1).float().mean():.3f}")
+    if not apart <= TOOL_PIXELS_APART:
+        failures.append(f"phase 15e: the voxel render is {apart} of pixels from the CPU's")
+
+    out = ds.parent / "orbit.avi"
+    t0 = time.perf_counter()
+    pcl2voxel.voxel_orbit_video(vox, out, img_size=256, num_frames=ORBIT_FRAMES, device=device)
+    seconds = time.perf_counter() - t0
+    frames, _ = read_avi(out)
+    host0 = pcl2voxel.voxel_orbit_frames(vox, 256, 1, device="cpu")[0]
+    from conditioned_nerf_gan_torch.utils.image import to_uint8
+
+    apart = (np.abs(frames[0].astype(int) - to_uint8(host0)[..., ::-1]).max(-1) > 1).mean()
+    print(f"phase 15e: pcl2voxel orbit AVI, {len(frames)} frames of {frames.shape[1:]}: "
+          f"{seconds:.4f} s; frame 0 pixels apart from the CPU's {apart:.3e} (bound "
+          f"{TOOL_PIXELS_APART})")
+    if len(frames) != ORBIT_FRAMES or not apart <= TOOL_PIXELS_APART:
+        failures.append(f"phase 15e: the orbit AVI ({len(frames)} frames) is {apart} apart")
+
+    run = trainer["thesis_run"]
+    checkpoint = run / "checkpoints" / f"{THESIS_STOP}.pt"
+    dense = run.parent / f"{run.name}_dense"
+    if not dense.exists():
+        dense_copy(run, checkpoint)
+    counters = kernel_counters()[:1]
+    take_counts(counters)
+    t0 = time.perf_counter()
+    loss = geoloss.replay_geometry_loss(dense / "checkpoints" / checkpoint.name, device=device)
+    seconds = time.perf_counter() - t0
+    (k1,) = take_counts(counters)
+    with PlainVersions():
+        plain = geoloss.replay_geometry_loss(dense / "checkpoints" / checkpoint.name,
+                                             device=device)
+    take_counts(counters)
+    rel = abs(loss - plain) / abs(plain)
+    print(f"phase 15e: geoloss on the dense thesis checkpoint: {loss:.7f} in {seconds:.4f} s "
+          f"(K1 {k1}), with the plain K1 {plain:.7f}, rel {rel:.3e} (bound {GEOLOSS_TOL})")
+    if not (k1 >= 1 and rel <= GEOLOSS_TOL):
+        failures.append(f"phase 15e: geoloss {loss} (K1 {k1}) against the plain {plain}")
+
+    boxes = _make_car(np.random.default_rng(16))
+    cams = np.stack([blender_cam_pose(o) @ BLENDER_CAM_FLIP
+                     for o in sample_cam(4, 1.1, 1.1, 17)]).astype(np.float32)
+    render = (boxes, cams, 128, 49.134342641202636, 0.25, 1.95)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pix, depth = fixture.render_views(*render, device=device)
+    seconds = time.perf_counter() - t0
+    h_pix, h_depth = fixture.render_views(*render, device="cpu")
+    same_bg = (np.isinf(depth) == np.isinf(h_depth)).mean()
+    hit = np.isfinite(depth) & np.isfinite(h_depth)
+    pix_d = float(np.abs(pix - h_pix).max())
+    depth_d = float(np.abs(depth[hit] - h_depth[hit]).max()) if hit.any() else float("nan")
+    print(f"phase 15e: the fixture exporter's render, 4 views at 128^2: {seconds:.4f} s; "
+          f"max |card - CPU| pixels {pix_d:.3e}, depth {depth_d:.3e} where both hit "
+          f"({hit.mean():.3f} of pixels), background agreement {same_bg:.4f} (bounds 1e-3, "
+          "1e-3, 0.99)")
+    if not (pix_d <= 1e-3 and depth_d <= 1e-3 and same_bg >= 0.99):
+        failures.append("phase 15e: the fixture render differs from the CPU's")
+    return k1
+
+
+def phase15_data_parallel(device, trainer: dict, work: Path, failures: list) -> dict:
+    """Phase 15: data parallelism and the ray-sharded render (15a-15d) and
+    the tools (15e) on the card, on phase 10's fixture and checkpoints;
+    each path's launches, its counters set to 0 just before it."""
+    t0 = time.perf_counter()
+    out = {}
+    work = work / "phase15"
+    work.mkdir()
+    for key, fn, args in (("two_ranks", phase15_two_ranks, (device, work, failures)),
+                          ("nccl", phase15_nccl_world1, (device, trainer, work, failures)),
+                          ("cli", phase15_two_rank_cli, (device, trainer, work, failures)),
+                          ("sharded", phase15_sharded_render, (device, trainer, failures)),
+                          ("tools", phase15_tools, (device, trainer, failures))):
+        t1 = time.perf_counter()
+        out[key] = fn(*args)
+        print(f"phase 15 [{key}]: {time.perf_counter() - t1:.2f} s")
+        torch.cuda.empty_cache()
+    print(f"phase 15: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run "
@@ -3731,6 +4594,7 @@ def main() -> int:
         variants = phase13_voxel_variants(device, trainer["dataset"], Path(work),
                                           Path(build.BUILD_DIR), failures)
         remaining = phase14_remaining_models(device, trainer["dataset"], Path(work), failures)
+        parallel = phase15_data_parallel(device, trainer, Path(work), failures)
     if failures:
         raise AssertionError("failed checks:\n  " + "\n  ".join(failures))
     thesis, dg_run = trainer["trainer"], trainer["dg_trainer"]
@@ -3739,7 +4603,16 @@ def main() -> int:
                                "trainer_resumed": trainer["resumed"][0],
                                "trainer_infer": trainer["trainer_infer"][0],
                                "trainer_eval": evaluation["k1"],
-                               "infer_modes": inference["k1"]}
+                               "infer_modes": inference["k1"],
+                               # phase 15: both ranks' steps, the world-1 NCCL run, both
+                               # ranks of both CLI runs, the two-slab render and the
+                               # --shard_rays CLI, the geometry-loss replay
+                               "dp_two_ranks": parallel["two_ranks"][0],
+                               "dp_nccl_trainer": parallel["nccl"][0],
+                               "dp_trainer": parallel["cli"][0],
+                               "sharded_render": parallel["sharded"][0],
+                               "sharded_infer": parallel["sharded"][1],
+                               "tools_geoloss": parallel["tools"]}
     fwd["ms_by_shape"]["voxel grid 64^3"] = inference["timed"]["voxel grid 64^3"]
     fwd["launches"] = sum(fwd["launches_by_path"].values())
     # phase 13's paths: each step path's launches over its warm-up and timed
@@ -3763,7 +4636,10 @@ def main() -> int:
     bwd["launches_by_path"] = {"train": train_bwd, "film_study": study["k2"],
                                "dg_train": dg["k2"], "trainer": thesis[1],
                                "trainer_resumed": trainer["resumed"][1],
-                               "dg_trainer": dg_run[1], **{k: c[1] for k, c in new_paths.items()}}
+                               "dg_trainer": dg_run[1], **{k: c[1] for k, c in new_paths.items()},
+                               "dp_two_ranks": parallel["two_ranks"][1],
+                               "dp_nccl_trainer": parallel["nccl"][1],
+                               "dp_trainer": parallel["cli"][1]}
     bwd["launches"] = sum(bwd["launches_by_path"].values())
     bwd["ms_by_shape"].update(bwd32["timed"])
     bwd["ms_by_shape"].update(new_k["k2"])

@@ -5,8 +5,10 @@ Takes a port checkpoint `{run}/checkpoints/{step}.pt` (see
 and keeps the flag names and the order of the JAX CLI (inference.py):
 image grids, the orbit video (an uncompressed .avi where the JAX CLI writes
 .mp4), colored point clouds, the density voxel, metrics and latent
-interpolation. `--shard_rays` (multi-GPU, ROADMAP A14) and `--platform`
-(a JAX backend; the port takes `--device`) exit 2 naming why.
+interpolation. `--shard_rays` splits each render's pixel rows over the
+visible cards when there is more than one and `--image_size` divides by
+their count (else it renders as without); `--platform` (a JAX backend; the
+port takes `--device`) exits 2 naming why.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ import numpy as np
 
 # flag -> why it is refused
 _NOT_PORTED = {
-    "shard_rays": "multi-GPU ray sharding is ROADMAP A14",
     "platform": "--platform picks a JAX backend; the port takes --device",
 }
 
@@ -98,7 +99,7 @@ def main(argv=None) -> int:
             input_voxel_resolution=opt.input_voxel_resolution, z_up=opt.z_up,
             num_imgs=opt.num_imgs, image_size=opt.image_size,
             ray_step_multiplier=opt.ray_step_multiplier, load_dataset=not opt.interpolate,
-            seed=seed, device=opt.device,
+            seed=seed, device=opt.device, shard_rays=opt.shard_rays,
         )
         if opt.images:
             inferencer.render_imgs(opt.cam_fixed)

@@ -10,7 +10,11 @@ point clouds (`render_pcl`, `render_pcl_masked`), density voxels
 (`save_voxel`), metrics (`compute_metrics`) and latent interpolation
 (`interpolate_latent_codes`). Each renders through the generator, so on the
 card through the kernels. Videos are uncompressed AVI (`utils/video.py`)
-where the JAX package writes mp4v through cv2: the port uses no cv2.
+where the JAX package writes mp4v through cv2: the port uses no cv2. With
+`shard_rays`, each render's pixel rows are split over the visible cards
+(`parallel.render_ray_sharded`) when there is more than one and the image
+size divides by their count, the JAX Inferencer's rule; else it renders
+on `device` as without.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..models.generator import ImplicitGenerator3d, RenderConfig
 from ..models.pointnet import ResnetPointnet, encode_pcl
 from ..models.unet3d import make_unet
 from ..ops.rays import create_cam2world_matrix, sample_camera_positions
+from ..parallel import render_ray_sharded
 from ..utils.image import save_image_grid
 from ..utils.rotation import perturb_extrinsics
 from ..utils.video import write_avi
@@ -117,6 +122,18 @@ def save_checkpoint(path: str | Path, step: int, generator_model: torch.nn.Modul
     return path
 
 
+def shard_devices(device: torch.device, img_size: int) -> list | None:
+    """The cards a `shard_rays` render splits its pixel rows over: every
+    visible card, `device`'s first (the slabs meet there), where there is
+    more than one and img_size divides over them; else None, and the render
+    stays on `device` (the JAX CLI's rule)."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if cards < 2 or img_size % cards:
+        return None
+    first = device.index if device.index is not None else torch.cuda.current_device()
+    return [torch.device("cuda", (first + i) % cards) for i in range(cards)]
+
+
 def refuse_pyramid(z, caller: str) -> None:
     """Raise on a feature pyramid's ([levels], global) conditioning, which
     the JAX Inferencer cannot render in blocks (see `render_batched`)."""
@@ -132,8 +149,10 @@ class Inferencer:
                  input_voxel_resolution: int = 64, z_up: bool = False,
                  num_imgs: int = 8, image_size: int = 128,
                  ray_step_multiplier: int = 1, load_dataset: bool = True,
-                 seed: int = 0, device: str | torch.device = "cuda"):
+                 seed: int = 0, device: str | torch.device = "cuda",
+                 shard_rays: bool = False):
         self.checkpoint_path = Path(checkpoint_path)
+        self.shard_rays = shard_rays
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Inferencer: device {str(device)!r} asked for, but no "
@@ -217,6 +236,10 @@ class Inferencer:
         cams = self._tensor(cam2world)
         if not np.isscalar(fov):
             fov = self._tensor(fov)
+        devices = shard_devices(self.device, cfg.img_size) if self.shard_rays else None
+        if devices:
+            return render_ray_sharded(self.generator, self._on_device(z), cams, cfg, devices,
+                                      fov=fov)
         return self.generator(self._on_device(z), cams, cfg, generator=None, fov=fov)
 
     def _on_device(self, z):

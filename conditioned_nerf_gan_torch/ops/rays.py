@@ -26,14 +26,15 @@ def pixel_rays(fov, width: int, height: int, dtype=torch.float32,
     Pixel (row j, col i) is flat index j*W + i with x = linspace(-1,1,W)[i],
     y = linspace(-1,1,H)[j], z = 1/tan(fov/2), fov in degrees.
     `row_offset`/`full_height` give rows [row_offset, row_offset+height) of a
-    full_height-tall grid. A (B,) tensor `fov` gives per-image focal lengths
-    and returns (B, W*H, 3).
+    full_height-tall grid: those rows of its linspace, so a slab's rays are
+    bit-equal to the whole image's (`parallel.render_ray_sharded`). A (B,)
+    tensor `fov` gives per-image focal lengths and returns (B, W*H, 3).
     """
     x = torch.linspace(-1.0, 1.0, width, dtype=dtype, device=device)
     if row_offset is not None:
         fh = full_height if full_height is not None else height
-        rows = row_offset + torch.arange(height, dtype=dtype, device=device)
-        y = rows * (2.0 / (fh - 1)) - 1.0
+        y = torch.linspace(-1.0, 1.0, fh, dtype=dtype,
+                           device=device)[row_offset:row_offset + height]
     else:
         y = torch.linspace(-1.0, 1.0, height, dtype=dtype, device=device)
     xx = x[None, :].expand(height, width).reshape(-1)

@@ -6,8 +6,16 @@ The flags of the JAX package's train.py (`-o/-s/-p/-e/-l`,
 of `--platform`: it trains on `cuda` unless given `--device cpu`, and exits
 2 without a card. `--smoke` writes a small synthetic dataset into the
 output directory and trains the `smoke` config base on it (the reference's
-`python train.py -o test -p 1` check). The multi-process flags exit 2:
-multi-GPU training is ROADMAP A14.
+`python train.py -o test -p 1` check).
+
+Multi-GPU training runs one process a card: launch the CLI N times with
+`--coordinator host:port --num_processes N --process_id i` (or the
+CNG_COORDINATOR / CNG_NUM_PROCESSES / CNG_PROCESS_ID variables, or
+`--distributed` under `torchrun`). Each rank takes card `local_rank %
+torch.cuda.device_count()`, its index among the ranks on its host (on one
+host its process_id), unless `--device` names one; it seeds
+`random` and `np.random` with seed + its rank, and under `--smoke` reads
+the dataset that rank 0 writes (the others wait at a barrier).
 """
 
 from __future__ import annotations
@@ -24,10 +32,6 @@ import numpy as np
 
 # flag -> why it is refused
 _NOT_PORTED = {
-    "distributed": "multi-GPU training is ROADMAP A14",
-    "coordinator": "multi-GPU training is ROADMAP A14",
-    "num_processes": "multi-GPU training is ROADMAP A14",
-    "process_id": "multi-GPU training is ROADMAP A14",
     "platform": "--platform picks a JAX backend; the port takes --device",
 }
 
@@ -62,10 +66,17 @@ def parse_args(argv=None):
     parser.add_argument("--native_loader", action="store_true",
                         help="decode PNGs/EXRs through the C++ thread-pool loader "
                              "(native/fastload.cc; env: CNG_NATIVE_LOADER=1)")
-    parser.add_argument("--distributed", action="store_true")
-    parser.add_argument("--coordinator", type=str, default=None)
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
+    # multi-process execution: launch this CLI once per card
+    parser.add_argument("--distributed", action="store_true",
+                        help="start torch.distributed (without --coordinator: from "
+                             "torchrun's environment)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="rank 0's address host:port (implies --distributed; "
+                             "env: CNG_COORDINATOR)")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="total process count (env: CNG_NUM_PROCESSES)")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="this process's rank (env: CNG_PROCESS_ID)")
     return parser.parse_args(argv)
 
 
@@ -87,15 +98,34 @@ def main(argv=None) -> int:
     if args.native_loader:
         os.environ["CNG_NATIVE_LOADER"] = "1"
 
+    from .parallel import distributed_requested, initialize_distributed, shutdown_distributed
+
+    if not distributed_requested(args):
+        return _train(args, 0)
+    context = initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                     device=args.device)
+    args.device = str(context.device)
+    try:
+        return _train(args, context.rank)
+    finally:
+        shutdown_distributed()
+
+
+def _train(args, process_index: int) -> int:
+    import torch
+
+    from .parallel import sync_processes
+
     if args.smoke:
         from .data.synthetic import make_synthetic_shapenet
 
         data_root = Path(args.output_dir) / "synthetic_data"
         ds_root = data_root / "ShapeNetCar"
-        if not ds_root.exists():
+        if process_index == 0 and not ds_root.exists():
             print("Generating synthetic smoke dataset ...")
             make_synthetic_shapenet(data_root, n_cars=6, n_views=8, img_size=64,
                                     n_points=2048, device=args.device)
+        sync_processes("smoke_data_written")
         os.environ["CNG_DATASET_PATH"] = str(ds_root)
         if args.config_base == "thousand":
             args.config_base = "smoke"
@@ -103,8 +133,8 @@ def main(argv=None) -> int:
         importlib.reload(importlib.import_module(
             f"conditioned_nerf_gan_torch.config.presets.{args.config_base}"))
 
-    random.seed(args.seed)
-    np.random.seed(args.seed)
+    random.seed(args.seed + process_index)
+    np.random.seed(args.seed + process_index)
     torch.manual_seed(args.seed)
 
     from .training.trainer import Trainer
@@ -114,7 +144,7 @@ def main(argv=None) -> int:
              if torch.device(args.device).type == "cuda" else ""))
     print(datetime.now().strftime("%d--%H:%M"))
     print("---------------- Start training ----------------", flush=True)
-    trainer = Trainer(args)
+    trainer = Trainer(args)  # its rank and world size: the process group's
     trainer.load_models()
     trainer.train()
     return 0

@@ -28,9 +28,17 @@ feature) pair conditions the render unchanged; its grads come back through
 the trilinear sampler, the volume's as the render's one dV buffer (the
 generator's `one_volume_grad`). Modules and optimizers update in place. Randomness comes from one explicit
 `torch.Generator` on the batch's device (None: deterministic renders, which
-needs `random_gen_img` and `noise_weight` off). Not ported: the chained
-multi-step dispatch (a TPU dispatch workaround, ROADMAP A8) and the
-data-parallel `axis_name` path (ROADMAP A14).
+needs `random_gen_img` and `noise_weight` off).
+
+Data parallelism is the JAX step's `axis_name` (shard_map) path: given a
+process `group`, each rank trains on its shard of the batch and, before
+each optimizer's `step()`, averages that optimizer's grads over the ranks
+in one all-reduce (`parallel.average_gradients`), so each clip sees the
+mean grads as optax's chain does after the pmean; d_loss rides in D's
+all-reduce and the G/E metrics in G's. The caller folds the rank into the
+step's `torch.Generator` (the JAX step's `fold_in(axis_index)`). Not
+ported: the chained multi-step dispatch (a TPU dispatch workaround,
+ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch.nn as nn
 from ..models.generator import RenderConfig
 from ..models.pointnet import encode_pcl
 from ..ops.rays import create_cam2world_matrix, sample_camera_positions
+from ..parallel.mesh import average_gradients
 from .losses import depth_loss as fg_depth_loss
 from .losses import gan_d_loss, gan_g_loss, photometric_loss, r1_penalty
 
@@ -179,10 +188,13 @@ def create_train_state(generator: nn.Module, encoder: nn.Module,
         opt_D=opt_D)
 
 
-def make_train_step(config: TrainStepConfig) -> Callable:
+def make_train_step(config: TrainStepConfig, group=None) -> Callable:
     """Build `train_step(state, batch, generator, alpha, nerf_noise) ->
     (state, metrics)`: one D step (with the discriminator on) then one G/E
-    step. `batch` holds tensors on the models' device: img (B, S, S, 3) in
+    step. With a `torch.distributed` process `group` (`dist.group.WORLD`:
+    every rank) `batch` is this rank's shard, and the grads and metrics are
+    averaged over the group's ranks before each optimizer steps. `batch`
+    holds tensors on the models' device: img (B, S, S, 3) in
     [-1, 1], cam2world (B, 4, 4), the conditioning (pcl (B, T, 6), or with
     `load_voxel` and not `load_pcl` voxel (B, R, R, R, 4) NDHWC) and, with
     the depth loss, depth (B, S, S), and with `cond_mode` the conditioning
@@ -234,14 +246,18 @@ def make_train_step(config: TrainStepConfig) -> Callable:
             loss = loss + config.r1_lambda * r1_penalty(r_logits, real)
         state.opt_D.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            (loss,) = average_gradients(state.opt_D, group, [loss])
         state.opt_D.step()
-        return loss.detach()
+        return loss
 
     def generator_step(state, batch, generator, alpha, nerf_noise):
         k = config.batch_split
         B = batch["img"].shape[0]
         if B % k:
-            raise ValueError(f"batch_split={k} must divide the batch {B}")
+            raise ValueError(f"batch_split={k} must divide the "
+                             f"{'per-rank ' if group is not None else ''}batch {B}")
         b = B // k
         G, E, D = state.generator, state.encoder, state.discriminator
         state.opt_G.zero_grad(set_to_none=True)
@@ -278,6 +294,10 @@ def make_train_step(config: TrainStepConfig) -> Callable:
             for p in (*G.parameters(), *E.parameters()):
                 if p.grad is not None:
                     p.grad.mul_(scale / k)
+        if group is not None:
+            metrics = dict(zip(names, average_gradients(state.opt_G, group,
+                                                        [metrics[n] for n in names])))
+            average_gradients(state.opt_E, group)
         state.opt_G.step()
         state.opt_E.step()
         return {name: m / k for name, m in metrics.items()}

@@ -24,13 +24,27 @@ conditioned_nerf_gan_tpu/training/trainer.py).
     LPIPS, PSNR of the `fid` subset, `eval/`) every eval_freq, appended to
     fid.txt and fid_history, a checkpoint at the end, and a torch.profiler
     trace of steps 10-15 with --profile_dir.
+  * multi-process data parallelism (`process_index`, `process_count`: the
+    default process group's rank and size, one process a card, after
+    `parallel.initialize_distributed`): each rank
+    reads its shard of every batch (the loader's `process_index` /
+    `process_count`; the global batch is batch_size x process_count, and
+    batch_split must divide the per-rank batch), steps with its grads
+    averaged over the ranks (`make_train_step(..., group=)`) and draws from
+    a generator whose seed folds in its rank; rank 0 alone prints the
+    stats and writes sample grids, val losses, fid.txt, the train settings
+    and the checkpoints, with barriers where the others must wait; every
+    rank renders its shard of the eval images; after the build and after a
+    resume (every rank restores the same checkpoint) rank 0's params and
+    optimizer state are broadcast (`parallel.replicate`).
 
-Not ported, each a workaround or a later item:
+Not ported, each a workaround:
   * `steps_per_dispatch` chaining, its window clamp and its starvation
     warning (`trainer.py:414-495`, `:785-856`): they amortise the TPU's
     host round trip a dispatch; here each step is launched from the host;
-  * the mesh trim and regrow, `_local_params` and multi-process runs: one
-    GPU here, data parallelism is ROADMAP A14;
+  * the mesh trim and regrow (`trainer.py:340-361`) and `_local_params`:
+    a rank is one process on one card, so there is no mesh to fit to the
+    batch and no global array to pull a local copy of;
   * `utils/cache.py` (XLA's compile cache): nothing is compiled ahead here
     but the CUDA kernels, which `ops/kernels/build.py` caches.
 """
@@ -48,6 +62,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import curriculum_to_json, extract_metadata, last_upsample_step, load_curriculum
 from ..data import DataLoader, ShapeNetDataset
@@ -56,6 +71,7 @@ from ..infer.inference import build_models, compute_dtype
 from ..models.discriminators import make_discriminator
 from ..models.generator import RenderConfig
 from ..models.pointnet import encode_pcl
+from ..parallel import replicate, sync_processes
 from ..utils.image import save_image_grid
 from ..utils.resize import resize
 from .checkpoints import find_newest_checkpoint, restore_checkpoint, save_checkpoint
@@ -75,9 +91,10 @@ HISTORY_KEYS = (
 )
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The seed of step `step`'s random numbers in a run seeded `seed`."""
-    return ((1000 + seed) << 32) + step
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The seed of step `step`'s random numbers on rank `rank` of a run
+    seeded `seed` (rank 0's is the one-process run's)."""
+    return ((1000 + seed) << 32) + step + (rank << 56)
 
 
 def set_learning_rates(state: TrainState, config: TrainStepConfig) -> None:
@@ -114,8 +131,15 @@ class Trainer:
 
     def __init__(self, args: Any):
         """`args` holds the train CLI's flags; `args.device` (default cuda)
-        is the torch device the nets train on."""
+        is the torch device the nets train on. Under the default process
+        group (`parallel.initialize_distributed`) this is its rank of its
+        world size, and the step averages its grads over it, even with one
+        rank; without one, the only process."""
         self.args = args
+        self.group = dist.group.WORLD if dist.is_initialized() else None
+        self.process_index = dist.get_rank() if self.group else 0
+        self.process_count = dist.get_world_size() if self.group else 1
+        self.is_main = self.process_index == 0
         self.device = torch.device(getattr(args, "device", "cuda"))
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Trainer: device {str(self.device)!r} asked for, but no "
@@ -231,6 +255,8 @@ class Trainer:
             self._restored_loader_state = histories.get("loader_state")
         else:
             print("Creating untrained models")
+        if self.group is not None:
+            replicate(self.state, self.group)
         self._rebuild_step_fn()
 
     def _stage_dataset(self) -> ShapeNetDataset:
@@ -248,7 +274,8 @@ class Trainer:
 
     def _make_dataloader(self) -> DataLoader:
         return DataLoader(self._stage_dataset(), self.metadata["batch_size"], shuffle=True,
-                          drop_last=True, seed=self.seed)
+                          drop_last=True, seed=self.seed, process_index=self.process_index,
+                          process_count=self.process_count)
 
     def _current_step_config(self, metadata: dict) -> TrainStepConfig:
         """The stage's TrainStepConfig with the static density-noise gate:
@@ -262,7 +289,11 @@ class Trainer:
 
     def _rebuild_step_fn(self) -> None:
         self.step_config = self._current_step_config(self.metadata)
-        self._step_fn = make_train_step(self.step_config)
+        k, batch = self.step_config.batch_split, self.metadata["batch_size"]
+        if self.group is not None and batch % k:
+            raise ValueError(f"data parallelism chunks the per-rank batch {batch} by "
+                             f"batch_split={k}, which must divide it")
+        self._step_fn = make_train_step(self.step_config, group=self.group)
         set_learning_rates(self.state, self.step_config)
 
     def update_metadata(self) -> bool:
@@ -292,6 +323,8 @@ class Trainer:
         self.nerf_noise = float(nerf_noise_schedule(self.step))
 
     def write_train_settings(self) -> None:
+        if not self.is_main:
+            return
         out = Path(self.args.output_dir)
         with open(out / "train_spec.txt", "w") as f:
             f.write(str(vars(self.args)))
@@ -305,7 +338,7 @@ class Trainer:
         curriculum_to_json(self.curriculum, out / "curriculum.json")
 
     def print_stats(self, steps_elapsed_time: float):
-        if (self.step + 1) % self.args.print_freq != 0:
+        if not (self.is_main and (self.step + 1) % self.args.print_freq == 0):
             return None
         self._flush_metrics()  # histories current through this step
         header = ["Time", "Epoch", "Step", "Sec per step", "Alpha",
@@ -317,7 +350,7 @@ class Trainer:
             round(steps_elapsed_time / self.args.print_freq, 3),
             f"{self.alpha:.2f}",
             self.metadata["img_size"],
-            self.metadata["batch_size"],
+            self.metadata["batch_size"] * self.process_count,
             self.metadata["num_steps"],
         ]
         if self.metadata["dataset"]["load_voxel"]:
@@ -361,7 +394,8 @@ class Trainer:
 
         for _ in range(self.args.n_epochs):
             epoch_start = time.time()
-            print(f"---- {self.epoch}_th epoch ----", flush=True)
+            if self.is_main:
+                print(f"---- {self.epoch}_th epoch ----", flush=True)
             restart_epoch = False
             # the epoch about to be consumed (DataLoader.__iter__ bumps .epoch)
             self._loader_epoch = dataloader.epoch
@@ -406,7 +440,9 @@ class Trainer:
                     return
             if not restart_epoch:
                 dt = time.time() - epoch_start
-                print(f"{self.epoch}_th epoch runtime: {int(dt // 60):02}:{int(dt % 60):02}")
+                if self.is_main:
+                    print(f"{self.epoch}_th epoch runtime: "
+                          f"{int(dt // 60):02}:{int(dt % 60):02}")
                 self.epoch += 1
         self._final_checkpoint()
 
@@ -415,7 +451,7 @@ class Trainer:
         batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                  for k, v in batch.items() if not isinstance(v, list)}
         generator = torch.Generator(device=self.device).manual_seed(
-            step_seed(self.seed, self.step))
+            step_seed(self.seed, self.step, self.process_index))
         self.state, metrics = self._step_fn(self.state, batch, generator, self.alpha,
                                             self.nerf_noise)
         # the recording flags are taken now: a milestone can change the
@@ -426,7 +462,7 @@ class Trainer:
     def _profile_hook(self) -> None:
         """A torch.profiler trace of steps 10-14 into --profile_dir."""
         profile_dir = getattr(self.args, "profile_dir", None)
-        if not profile_dir:
+        if not (profile_dir and self.is_main):
             return
         if self.step == 10 and self._profiler is None:
             activities = [torch.profiler.ProfilerActivity.CPU]
@@ -446,7 +482,7 @@ class Trainer:
         """Always leave a checkpoint at loop exit (the eval_freq-gated save
         can otherwise lose an entire sub-eval_freq run)."""
         self._flush_metrics()
-        if not (self.checkpoints_path / f"{self.step - 1}.pt").exists():
+        if self.is_main and not (self.checkpoints_path / f"{self.step - 1}.pt").exists():
             print(f"Saving final checkpoint at step {self.step - 1}")
             save_checkpoint(self.checkpoints_path, self.step - 1, self.state,
                             self._checkpoint_payload())
@@ -516,16 +552,18 @@ class Trainer:
 
     def sample_imgs(self) -> None:
         """Dump GT/generated rgb+depth grids (utils.py:844-915), then the
-        val and test losses."""
+        val and test losses: rank 0's work, which the others wait out."""
         if (self.step + 1) % self.args.sampling_interval != 0:
             return
-        self._flush_metrics()  # keep history order: train losses first
-        for dataset, path in ((self.trainset, self.samples_train_path),
-                              (self.valset, self.samples_val_path),
-                              (self.testset, self.samples_test_path)):
-            self._sample_from_cameras(dataset, path)
-        self.val_loss(self.valset, "photometry_losses_val", "depth_losses_val")
-        self.val_loss(self.testset, "photometry_losses_test", "depth_losses_test")
+        if self.is_main:
+            self._flush_metrics()  # keep history order: train losses first
+            for dataset, path in ((self.trainset, self.samples_train_path),
+                                  (self.valset, self.samples_val_path),
+                                  (self.testset, self.samples_test_path)):
+                self._sample_from_cameras(dataset, path)
+            self.val_loss(self.valset, "photometry_losses_val", "depth_losses_val")
+            self.val_loss(self.testset, "photometry_losses_test", "depth_losses_test")
+        sync_processes("sample_imgs_done")
 
     def _sample_from_cameras(self, dataset, save_dir, num_imgs: int = 12) -> None:
         num_imgs = min(num_imgs, len(dataset))
@@ -590,7 +628,7 @@ class Trainer:
                 "loader_state": {"epoch": self._loader_epoch, "offset": self._batch_offset}}
 
     def save_models(self) -> None:
-        if (self.step + 1) % self.args.eval_freq == 0:
+        if self.is_main and (self.step + 1) % self.args.eval_freq == 0:
             self._flush_metrics()  # checkpoints persist the histories
             print(f"Saving checkpoint at step {self.step}")
             save_checkpoint(self.checkpoints_path, self.step, self.state,
@@ -598,13 +636,17 @@ class Trainer:
 
     def evaluate(self) -> None:
         """FID / oFID / LPIPS / PSNR every eval_freq (utils.py:974-1016): the
-        `fid` subset rendered at 128^2 with 96 samples a ray, scored against
-        its real images; a fid_history row and a fid.txt line."""
+        `fid` subset rendered at 128^2 with 96 samples a ray (each rank its
+        shard), scored by rank 0 against its real images; a fid_history row
+        and a fid.txt line on rank 0."""
         if (self.step + 1) % self.args.eval_freq != 0:
             return
         self._flush_metrics()
         meta = self._eval_metadata(img_size=128, num_steps=96)
-        fid, ofid, lpips_score, psnr = evaluate_trainer(self, meta)
+        results = evaluate_trainer(self, meta)
+        if results is None:  # a rank other than 0
+            return
+        fid, ofid, lpips_score, psnr = results
         self.histories["fid_history"].append([self.step, fid, ofid, lpips_score, psnr])
         append_fid_line(Path(self.args.output_dir) / "fid.txt", self.step, fid, ofid,
                         lpips_score, psnr)

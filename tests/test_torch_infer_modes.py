@@ -411,7 +411,8 @@ def test_interpolate_pair_matches_jax(mode, runs, monkeypatch):
     jself.__dict__.update(curriculum=curriculum, generator=jgen, params_G=params,
                           _render_cache={}, shard_rays=False)
     tself = object.__new__(Inferencer)
-    tself.__dict__.update(curriculum=curriculum, generator=tgen, device=torch.device("cpu"))
+    tself.__dict__.update(curriculum=curriculum, generator=tgen, device=torch.device("cpu"),
+                          shard_rays=False)
     for inf, wrap in ((jself, jnp.asarray), (tself, torch.from_numpy)):
         inf._load_car_cond = lambda car: {"car": car}
         inf.encode = lambda cond, wrap=wrap: tuple(map(wrap, pairs[cond["car"]]))

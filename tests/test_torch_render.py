@@ -177,15 +177,38 @@ def test_chip_smoke_imports_only_the_port():
     assert not roots & {"jax", "flax", "conditioned_nerf_gan_tpu"}, roots
 
 
-def test_cli_refuses_unported_features(converted_run, capsys):
-    """What the port's CLI still refuses: multi-GPU ray sharding (A14) and
-    the JAX backend switch (the port takes --device)."""
+def test_cli_refuses_unported_features(converted_run, capsys, monkeypatch):
+    """What the port's CLI still refuses: the JAX backend switch (the port
+    takes --device). `--shard_rays`, once refused, renders: without more
+    than one card it renders as without the flag (the JAX CLI's rule), and
+    over two devices (`shard_devices` stood in for: "cpu:0" twice, a device
+    other than the generator's, so each slab runs on a replica) through
+    `render_ray_sharded`; the same grid bytes each time."""
+    from conditioned_nerf_gan_torch.infer import inference
     from conditioned_nerf_gan_torch.infer.__main__ import main
 
     assert main([str(converted_run), "--shard_rays", "--platform", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "--shard_rays" in err and "ROADMAP A14" in err
-    assert "--platform" in err and "--device" in err
+    assert "--platform" in err and "--device" in err and "--shard_rays" not in err
+
+    sharded, render_ray_sharded = [], inference.render_ray_sharded
+    monkeypatch.setattr(inference, "render_ray_sharded",
+                        lambda *a, **k: sharded.append(a[4]) or render_ray_sharded(*a, **k))
+    grids, calls = [], []
+    for flags in ([], ["--shard_rays"], ["--shard_rays"]):
+        if len(grids) == 2:
+            monkeypatch.setattr(inference, "shard_devices",
+                                lambda device, img_size: [torch.device("cpu", 0)] * 2)
+        assert main([str(converted_run), "--images", "--image_size", "16", "--num_imgs", "2",
+                     "--device", "cpu", *flags]) == 0
+        out = converted_run.parent.parent / "inference"
+        newest = max(out.glob("*.png"), key=lambda p: p.stat().st_mtime)
+        grids.append(newest.read_bytes())
+        newest.unlink()  # names are stamped to the second
+        calls.append(len(sharded))
+    assert grids[0] == grids[1] == grids[2]
+    assert calls[:2] == [0, 0] and calls[2] > 0
+    assert all(devices == [torch.device("cpu", 0)] * 2 for devices in sharded)
 
 
 def test_port_imports_without_jax():

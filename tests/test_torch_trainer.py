@@ -282,7 +282,57 @@ def test_cli_without_a_card_exits_2(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--distributed"], ["--coordinator", "localhost:1234"],
-                                  ["--num_processes", "2"], ["--process_id", "1"]])
-def test_cli_refuses_the_multi_process_flags(tmp_path, capsys, flag):
-    assert train_cli.main(["-o", str(tmp_path / "x"), "--device", "cpu", *flag]) == 2
-    assert "A14" in capsys.readouterr().err
+                                  ["--num_processes", "5"], ["--process_id", "1"]])
+def test_cli_refuses_the_multi_process_flags(tmp_path, monkeypatch, flag):
+    """The four multi-process flags, once refused, are taken now: each
+    reaches `initialize_distributed` (the CNG_* variables filling in what
+    the flags leave out), the Trainer gets the rank and the world size, and
+    the process group is shut down after."""
+    from conditioned_nerf_gan_torch import parallel
+    from conditioned_nerf_gan_torch.parallel import distributed
+    from conditioned_nerf_gan_torch.training import trainer as trainer_module
+
+    for name, value in (("CNG_COORDINATOR", "envhost:9"), ("CNG_NUM_PROCESSES", "4"),
+                        ("CNG_PROCESS_ID", "3")):
+        monkeypatch.setenv(name, value)
+    for name in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    started = {}
+
+    def rendezvous(url, rank, world_size, timeout):
+        # an in-process store that already holds the other ranks' host names
+        started.update(url=url)
+        store = distributed.dist.HashStore()
+        for r in range(world_size):
+            store.set(f"cng_host/{r}", f"host{r}")
+        yield store, rank, world_size
+
+    def init_process_group(**kwargs):
+        started.update(kwargs)
+
+    monkeypatch.setattr(distributed.dist, "rendezvous", rendezvous)
+    monkeypatch.setattr(distributed.dist, "init_process_group", init_process_group)
+    monkeypatch.setattr(distributed.dist, "new_group", lambda **kw: None)
+    shut = []
+    monkeypatch.setattr(parallel, "shutdown_distributed", lambda: shut.append(True))
+
+    class StubTrainer:
+        def __init__(self, args):
+            started["trainer"] = args.device
+
+        def load_models(self):
+            pass
+
+        def train(self):
+            pass
+
+    monkeypatch.setattr(trainer_module, "Trainer", StubTrainer)
+    assert train_cli.main(["-o", str(tmp_path / "x"), "--device", "cpu", *flag]) == 0
+    expect = {"--distributed": ("tcp://envhost:9", 4, 3),
+              "--coordinator": ("tcp://localhost:1234", 4, 3),
+              "--num_processes": ("tcp://envhost:9", 5, 3),
+              "--process_id": ("tcp://envhost:9", 4, 1)}[flag[0]]
+    assert (started["url"], started["world_size"], started["rank"]) == expect
+    assert started["backend"] == "gloo"
+    assert started["trainer"] == "cpu"
+    assert shut == [True]
