@@ -15,6 +15,12 @@ where the JAX package writes mp4v through cv2: the port uses no cv2. With
 (`parallel.render_ray_sharded`) when there is more than one and the image
 size divides by their count, the JAX Inferencer's rule; else it renders
 on `device` as without.
+
+Under a torch profiler a request records the spans `infer.encode` (a root,
+with the stream's time) and `infer.render_batched` (a root), `infer.h2d`
+around each copy of an input from host memory (a pageable copy, which waits
+for the work queued before it) and `infer.to_host` around the rendered
+arrays' way to numpy (`utils/tracing.py`).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..models.pointnet import ResnetPointnet, encode_pcl
 from ..models.unet3d import make_unet
 from ..ops.rays import create_cam2world_matrix, sample_camera_positions
 from ..parallel import render_ray_sharded
+from ..utils import tracing
 from ..utils.image import save_image_grid
 from ..utils.rotation import perturb_extrinsics
 from ..utils.video import write_avi
@@ -210,7 +217,8 @@ class Inferencer:
     # ------------------------------------------------------------------
     def _tensor(self, x) -> torch.Tensor:
         """An array or a tensor on any device as fp32 on this device."""
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        with tracing.h2d_span(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     @torch.no_grad()
     def encode(self, sample_batch: dict):
@@ -219,10 +227,11 @@ class Inferencer:
         returns: a (feature volume (B, D, H, W, C) contiguous, global
         (B, z_dim)) pair, a bare volume, or a ([levels], global) pyramid.
         Arrays or tensors."""
-        if self.curriculum["dataset"]["load_pcl"]:
-            z, _ = encode_pcl(self.encoder, self._tensor(sample_batch["pcl"]))
-            return z
-        return self.encoder(self._tensor(sample_batch["voxel"]))
+        with tracing.span("infer.encode", device_time=True):
+            if self.curriculum["dataset"]["load_pcl"]:
+                z, _ = encode_pcl(self.encoder, self._tensor(sample_batch["pcl"]))
+                return z
+            return self.encoder(self._tensor(sample_batch["voxel"]))
 
     encode_batch = encode  # the eval's name (eval.fid_evaluation.output_images)
 
@@ -247,7 +256,8 @@ class Inferencer:
         this device."""
         if isinstance(z, (tuple, list)):
             return type(z)(self._on_device(part) for part in z)
-        return torch.as_tensor(z, device=self.device)
+        with tracing.h2d_span(z):
+            return torch.as_tensor(z, device=self.device)
 
     def render_batched(self, z, cams, *, fov=None, chunk: int = 8, img_size=None,
                        num_steps=None, z_batched: bool = False):
@@ -262,23 +272,25 @@ class Inferencer:
         serves no pyramid, and the port adds no mode the JAX package
         lacks."""
         refuse_pyramid(z, "render_batched")
-        cams = np.asarray(cams)
-        n = cams.shape[0]
-        parts = tuple(z) if isinstance(z, (tuple, list)) else (z,)
-        rgbs, depths = [], []
-        for s in range(0, n, chunk):
-            e = min(s + chunk, n)
-            z_c = tuple(p[s:e] if z_batched else p.repeat_interleave(e - s, dim=0)
-                        for p in parts)
-            z_c = z_c if len(parts) > 1 else z_c[0]
-            fov_c = None
-            if fov is not None:
-                fov_c = fov if np.ndim(fov) == 0 else np.asarray(fov[s:e])
-            rgb, d = self.generate_img(z_c, cams[s:e], img_size=img_size,
-                                       num_steps=num_steps, fov=fov_c)
-            rgbs.append(rgb.cpu().numpy())
-            depths.append(d.cpu().numpy())
-        return np.concatenate(rgbs), np.concatenate(depths)
+        with tracing.span("infer.render_batched"):
+            cams = np.asarray(cams)
+            n = cams.shape[0]
+            parts = tuple(z) if isinstance(z, (tuple, list)) else (z,)
+            rgbs, depths = [], []
+            for s in range(0, n, chunk):
+                e = min(s + chunk, n)
+                z_c = tuple(p[s:e] if z_batched else p.repeat_interleave(e - s, dim=0)
+                            for p in parts)
+                z_c = z_c if len(parts) > 1 else z_c[0]
+                fov_c = None
+                if fov is not None:
+                    fov_c = fov if np.ndim(fov) == 0 else np.asarray(fov[s:e])
+                rgb, d = self.generate_img(z_c, cams[s:e], img_size=img_size,
+                                           num_steps=num_steps, fov=fov_c)
+                with tracing.span("infer.to_host"):
+                    rgbs.append(rgb.cpu().numpy())
+                    depths.append(d.cpu().numpy())
+            return np.concatenate(rgbs), np.concatenate(depths)
 
     def _inference_dir(self) -> Path:
         out = self.run_dir / "inference"

@@ -16,6 +16,8 @@ recompute) reads whole; with grad on the kernel route each volume, a
 pyramid's every level, goes through `ops.grid_sample.one_volume_grad` once
 a render (`one_grad_per_volume`), so the backward of every chunk's lookups
 adds into one dV a volume.
+Under a torch profiler a render records the span `gen.render`, and each ray
+chunk `gen.chunk`, its recompute in the backward too (`utils/tracing.py`).
 `save_siren_outputs` (a measured-neutral training lever of the JAX
 package) is not ported.
 """
@@ -32,6 +34,7 @@ from ..ops.grid_sample import one_volume_grad
 from ..ops.integration import volume_integrate
 from ..ops.rays import distance2depth, get_initial_rays, perturb_points, transform_rays
 from ..ops.sampling import merge_sorted_samples, sample_pdf
+from ..utils import tracing
 from .siren import SIREN_SPECS, make_siren
 
 
@@ -150,6 +153,12 @@ class ImplicitGenerator3d(nn.Module):
         [row_offset, row_offset + render_rows) of the img_size-tall grid.
         Returns pixels (B, H, W, 3) in [-1, 1] and depth (B, H, W).
         """
+        with tracing.span("gen.render"):
+            return self._render(z, cam2world, config, generator, nerf_noise, fov,
+                                row_offset, render_rows)
+
+    def _render(self, z, cam2world, config, generator, nerf_noise, fov, row_offset,
+                render_rows):
         B = cam2world.shape[0]
         S = config.num_steps
         W = H = config.img_size
@@ -192,8 +201,9 @@ class ImplicitGenerator3d(nn.Module):
             r = R // chunks
 
             def run_chunk(*chunk_rays):
-                return self._ray_pipeline(z, *chunk_rays[:4], config,
-                                          *chunk_rays[4:], nerf_noise)
+                with tracing.span("gen.chunk"):
+                    return self._ray_pipeline(z, *chunk_rays[:4], config,
+                                              *chunk_rays[4:], nerf_noise)
 
             remat = torch.is_grad_enabled()
             pixels, distances = [], []

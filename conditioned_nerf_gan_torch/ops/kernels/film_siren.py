@@ -28,7 +28,9 @@ Gradient:
     tiny plain torch that both of the above call.
 
 The fold (`fold_film`) and its unwind are plain torch outside the kernels, as
-they are outside `pallas_call` in the JAX package.
+they are outside `pallas_call` in the JAX package. Under a torch profiler
+the CUDA branches record the spans `kern.film_fwd` and `kern.film_bwd`
+(`utils/tracing.py`).
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ import ctypes
 import math
 
 import torch
+
+from ...utils import tracing
 
 _TWO_PI = 2.0 * math.pi
 _INV_TWO_PI = 1.0 / _TWO_PI
@@ -347,10 +351,11 @@ def film_siren_mlp(points, freq, phase, w0, b0, ws, bs, wf, bf):
     if points.device.type != "cuda":
         raise ValueError(f"film_siren_mlp: no kernel for device {points.device}")
     args = (points, freq, phase, w0, b0, ws, bs, wf, bf)
-    _check_kernel_inputs(*args)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return FilmSirenMLP.apply(*args)
-    return _forward_kernel(*args)
+    with tracing.span("kern.film_fwd"):
+        _check_kernel_inputs(*args)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            return FilmSirenMLP.apply(*args)
+        return _forward_kernel(*args)
 
 
 film_siren_mlp.launches = 0
@@ -375,6 +380,13 @@ def film_siren_mlp_bwd(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
         return film_siren_mlp_folded_vjp(*args, g)
     if points.device.type != "cuda":
         raise ValueError(f"film_siren_mlp_bwd: no kernel for device {points.device}")
+    with tracing.span("kern.film_bwd"):
+        return _backward_kernel(*args, g)
+
+
+def _backward_kernel(points, freq, phase, w0, b0, ws, bs, wf, bf, g):
+    """Launch K2 on CUDA tensors -> the nine fp32 grads."""
+    args = (points, freq, phase, w0, b0, ws, bs, wf, bf)
     _check_kernel_inputs(*args, name="film_siren_mlp_bwd")
     B, N, din = points.shape
     if g.device != points.device or g.dtype != torch.float32:

@@ -11,13 +11,16 @@ they are handed, launch and raise on anything the kernels do not take; they
 never fall back. The caller, `ops.grid_sample`, holds the plain versions
 (`border_trilerp_reference`, `border_trilerp_vjp_reference`), the autograd
 Functions (one dV a render) and the forward's launch count;
-`trilinear_bwd.launches` counts the backward's launches.
+`trilinear_bwd.launches` counts the backward's launches. Under a torch
+profiler the launchers record the spans `kern.trilinear_fwd` and
+`kern.trilinear_bwd` (`utils/tracing.py`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...utils import tracing
 from .film_siren import _c_function
 
 def _check_kernel_inputs(volume: torch.Tensor, coords: torch.Tensor,
@@ -50,18 +53,19 @@ def trilinear_fwd(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel: volume (B, D, H, W, C) and normalized
     coords (B, N, 3), fp32 on one card -> (B, N, C) fp32. At C 32, with one
     volume under 2^31 floats, the kernel takes its short index path."""
-    _check_kernel_inputs(volume, coords)
-    fn = _c_function("trilinear_fwd", "trilinear_fwd", 3, 6)
-    B, D, H, W, C = volume.shape
-    N = coords.shape[1]
-    out = torch.empty(B, N, C, dtype=torch.float32, device=volume.device)
-    with torch.cuda.device(volume.device):  # launch on the tensors' card
-        stream = torch.cuda.current_stream(volume.device).cuda_stream
-        err = fn(volume.data_ptr(), coords.data_ptr(), out.data_ptr(), B, N, D, H, W,
-                 C, stream)
-    if err != 0:
-        raise RuntimeError(f"trilinear_fwd launch failed: cudaError {err}")
-    return out
+    with tracing.span("kern.trilinear_fwd"):
+        _check_kernel_inputs(volume, coords)
+        fn = _c_function("trilinear_fwd", "trilinear_fwd", 3, 6)
+        B, D, H, W, C = volume.shape
+        N = coords.shape[1]
+        out = torch.empty(B, N, C, dtype=torch.float32, device=volume.device)
+        with torch.cuda.device(volume.device):  # launch on the tensors' card
+            stream = torch.cuda.current_stream(volume.device).cuda_stream
+            err = fn(volume.data_ptr(), coords.data_ptr(), out.data_ptr(), B, N, D, H, W,
+                     C, stream)
+        if err != 0:
+            raise RuntimeError(f"trilinear_fwd launch failed: cudaError {err}")
+        return out
 
 
 def _check_dvol(volume: torch.Tensor, dvol: torch.Tensor) -> None:
@@ -103,6 +107,12 @@ def trilinear_bwd(volume: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
         if dvol is not None:
             dvol.add_(dv)
         return dcoords
+    with tracing.span("kern.trilinear_bwd"):
+        return _backward_kernel(volume, coords, g, dvol, need_coords)
+
+
+def _backward_kernel(volume, coords, g, dvol, need_coords):
+    """Launch the backward kernel on CUDA tensors (see `trilinear_bwd`)."""
     g = g.contiguous()
     _check_kernel_inputs(volume, coords, name="trilinear_bwd", g=g)
     B, D, H, W, C = volume.shape

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from ..utils import tracing
+
 
 def normalize_vecs(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Unit-normalize along `dim`."""
@@ -39,7 +41,10 @@ def pixel_rays(fov, width: int, height: int, dtype=torch.float32,
         y = torch.linspace(-1.0, 1.0, height, dtype=dtype, device=device)
     xx = x[None, :].expand(height, width).reshape(-1)
     yy = y[:, None].expand(height, width).reshape(-1)
-    fov_t = torch.as_tensor(fov, dtype=dtype, device=device)
+    # a number's copy to the device waits for the stream (a render's host
+    # wait; the `infer.h2d` span under a profiler)
+    with tracing.h2d_span(fov):
+        fov_t = torch.as_tensor(fov, dtype=dtype, device=device)
     inv_tan = 1.0 / torch.tan(fov_t * (math.pi / 360.0))
     if fov_t.ndim == 0:
         z = inv_tan.expand(xx.shape)

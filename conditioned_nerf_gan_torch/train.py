@@ -57,7 +57,8 @@ def parse_args(argv=None):
     parser.add_argument("--config_base", type=str, default="thousand")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="write a torch.profiler trace of steps 10-15 here")
+                        help="write a torch.profiler trace of steps 10-14 here, "
+                             "with the port's spans (train.step, train.d_step, ...)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (cuda, cuda:1, ..., or cpu)")
     parser.add_argument("--platform", type=str, default=None)

@@ -30,6 +30,11 @@ generator's `one_volume_grad`). Modules and optimizers update in place. Randomne
 `torch.Generator` on the batch's device (None: deterministic renders, which
 needs `random_gen_img` and `noise_weight` off).
 
+Under a torch profiler the step records the spans `train.step` (its root),
+`train.d_step`, `train.g_step`, one `train.optim` an optimizer step and
+`train.encode` (`utils/tracing.py`); with none running each costs a flag
+read.
+
 Data parallelism is the JAX step's `axis_name` (shard_map) path: given a
 process `group`, each rank trains on its shard of the batch and, before
 each optimizer's `step()`, averages that optimizer's grads over the ranks
@@ -53,6 +58,7 @@ from ..models.generator import RenderConfig
 from ..models.pointnet import encode_pcl
 from ..ops.rays import create_cam2world_matrix, sample_camera_positions
 from ..parallel.mesh import average_gradients
+from ..utils import tracing
 from .losses import depth_loss as fg_depth_loss
 from .losses import gan_d_loss, gan_g_loss, photometric_loss, r1_penalty
 
@@ -133,16 +139,17 @@ class ClippedAdam(torch.optim.Adam):
 
     @torch.no_grad()
     def step(self, closure=None):
-        params = [p for group in self.param_groups for p in group["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
-        clip = self.defaults["grad_clip"]
-        keep = norm < clip
-        for p in params:
-            p.grad.copy_(torch.where(keep, p.grad, p.grad / norm * clip))
-        return super().step(closure)
+        with tracing.span("train.optim", device_time=True):
+            params = [p for group in self.param_groups for p in group["params"]]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
+            clip = self.defaults["grad_clip"]
+            keep = norm < clip
+            for p in params:
+                p.grad.copy_(torch.where(keep, p.grad, p.grad / norm * clip))
+            return super().step(closure)
 
 
 def make_optimizer(module: nn.Module, lr: float, betas=(0.0, 0.9),
@@ -213,12 +220,13 @@ def make_train_step(config: TrainStepConfig, group=None) -> Callable:
     def encode(encoder, chunk, generator):
         """Encoder forward -> (z, z_reg): the PointNet's latent and its
         norm, or the U-Net's (volume, global) pair and a zero."""
-        if config.load_pcl:
-            if config.noise_weight and generator is None:
-                raise ValueError("noise_weight needs a generator")
-            return encode_pcl(encoder, chunk["pcl"], noise_weight=config.noise_weight,
-                              generator=generator)
-        return encoder(chunk["voxel"]), torch.zeros((), device=chunk["voxel"].device)
+        with tracing.span("train.encode"):
+            if config.load_pcl:
+                if config.noise_weight and generator is None:
+                    raise ValueError("noise_weight needs a generator")
+                return encode_pcl(encoder, chunk["pcl"], noise_weight=config.noise_weight,
+                                  generator=generator)
+            return encoder(chunk["voxel"]), torch.zeros((), device=chunk["voxel"].device)
 
     def discriminator_step(state, batch, generator, alpha, nerf_noise):
         real = batch["img"]
@@ -305,13 +313,16 @@ def make_train_step(config: TrainStepConfig, group=None) -> Callable:
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None,
                    alpha: float, nerf_noise: float):
         """One D-then-G iteration; returns (state, metrics)."""
-        batch = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
-        metrics = {}
-        if config.enable_discriminator:
-            metrics["d_loss"] = discriminator_step(state, batch, generator, alpha,
-                                                   nerf_noise)
-        metrics.update(generator_step(state, batch, generator, alpha, nerf_noise))
-        state.step += 1
-        return state, metrics
+        with tracing.span("train.step", device_time=True):
+            batch = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
+            metrics = {}
+            if config.enable_discriminator:
+                with tracing.span("train.d_step", device_time=True):
+                    metrics["d_loss"] = discriminator_step(state, batch, generator, alpha,
+                                                           nerf_noise)
+            with tracing.span("train.g_step", device_time=True):
+                metrics.update(generator_step(state, batch, generator, alpha, nerf_noise))
+            state.step += 1
+            return state, metrics
 
     return train_step

@@ -23,7 +23,9 @@ conditioned_nerf_gan_tpu/training/trainer.py).
     every sampling_interval, a checkpoint and the eval metrics (FID, oFID,
     LPIPS, PSNR of the `fid` subset, `eval/`) every eval_freq, appended to
     fid.txt and fid_history, a checkpoint at the end, and a torch.profiler
-    trace of steps 10-15 with --profile_dir.
+    trace of steps 10-14 with --profile_dir, which carries the port's
+    spans (`utils/tracing.py`: train.step, train.d_step, train.g_step,
+    train.optim, gen.chunk, the kernels' kern.*).
   * multi-process data parallelism (`process_index`, `process_count`: the
     default process group's rank and size, one process a card, after
     `parallel.initialize_distributed`): each rank
@@ -460,7 +462,8 @@ class Trainer:
         self._flush_metrics(keep=self._MAX_IN_FLIGHT)
 
     def _profile_hook(self) -> None:
-        """A torch.profiler trace of steps 10-14 into --profile_dir."""
+        """A torch.profiler trace of steps 10-14, with the port's spans,
+        into --profile_dir."""
         profile_dir = getattr(self.args, "profile_dir", None)
         if not (profile_dir and self.is_main):
             return
