@@ -16,11 +16,14 @@ where the JAX package writes mp4v through cv2: the port uses no cv2. With
 size divides by their count, the JAX Inferencer's rule; else it renders
 on `device` as without.
 
-Under a torch profiler a request records the spans `infer.encode` (a root,
-with the stream's time) and `infer.render_batched` (a root), `infer.h2d`
-around each copy of an input from host memory (a pageable copy, which waits
-for the work queued before it) and `infer.to_host` around the rendered
-arrays' way to numpy (`utils/tracing.py`).
+A request's inputs go to the card through pinned memory without waiting
+for the stream (`tracing.to_device`), so the host issues the render while
+the encode runs; the rendered arrays' way to numpy is the request's one
+wait. Under a torch profiler a request records the spans `infer.encode` (a
+root, with the stream's time) and `infer.render_batched` (a root),
+`infer.h2d` around each copy of an input from host memory and
+`infer.to_host` around the rendered arrays' way to numpy
+(`utils/tracing.py`).
 """
 
 from __future__ import annotations
@@ -216,9 +219,10 @@ class Inferencer:
 
     # ------------------------------------------------------------------
     def _tensor(self, x) -> torch.Tensor:
-        """An array or a tensor on any device as fp32 on this device."""
-        with tracing.h2d_span(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        """An array or a tensor on any device as fp32 on this device; from
+        the host a copy that does not wait for the stream
+        (`tracing.to_device`)."""
+        return tracing.to_device(x, self.device, torch.float32)
 
     @torch.no_grad()
     def encode(self, sample_batch: dict):
@@ -256,8 +260,7 @@ class Inferencer:
         this device."""
         if isinstance(z, (tuple, list)):
             return type(z)(self._on_device(part) for part in z)
-        with tracing.h2d_span(z):
-            return torch.as_tensor(z, device=self.device)
+        return tracing.to_device(z, self.device)
 
     def render_batched(self, z, cams, *, fov=None, chunk: int = 8, img_size=None,
                        num_steps=None, z_batched: bool = False):

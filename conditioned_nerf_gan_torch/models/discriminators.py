@@ -230,8 +230,9 @@ class _ProgressiveBase(nn.Module):
     def _trunk(self, img: torch.Tensor, alpha) -> torch.Tensor:
         start = self.size_to_layer[img.shape[-1]]
         if self.compute_dtype is not None:
-            # the blend in the policy dtype: an fp32 alpha would upcast it
-            alpha = torch.as_tensor(alpha, dtype=self.compute_dtype, device=img.device)
+            # the blend in the policy dtype: an fp32 alpha would upcast it;
+            # a fill on the device, where a copy of the number would wait
+            alpha = torch.full((), float(alpha), dtype=self.compute_dtype, device=img.device)
         x = self.fromRGB[start](img)
         for i, layer in enumerate(self.layers[start:]):
             if i == 1:

@@ -3,12 +3,42 @@
 Keeps the 1e10 tail delta, density noise (`noise=` injection or a
 `torch.Generator`), relu/softplus clamping, the +1e-10 exclusive
 transmittance cumprod, and the last_back / white_back / fill_mode options.
+The cumprod's factors are never zero, so its backward skips torch's test
+for zeros, a wait on the device (`cumprod_of_nonzeros`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+class _CumprodOfNonzeros(torch.autograd.Function):
+    """`torch.cumprod` whose backward is torch's own for an input without
+    zeros, `flip(cumsum(flip(out * g))) / x`, less its test of the input
+    for zeros, which reads a device flag on the host and so waits for the
+    stream in every ray chunk's backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        out = torch.cumprod(x, dim)
+        ctx.save_for_backward(x, out)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        w = out * g
+        return w.flip(ctx.dim).cumsum(ctx.dim).flip(ctx.dim).div(x), None
+
+
+def cumprod_of_nonzeros(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """torch.cumprod(x, dim) for an x without zeros (the transmittance's
+    factors, each at least 1e-10), differentiated without a wait."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CumprodOfNonzeros.apply(x, dim)
+    return torch.cumprod(x, dim)
 
 
 def volume_integrate(rgb_sigma: torch.Tensor, z_vals: torch.Tensor, *,
@@ -46,7 +76,7 @@ def volume_integrate(rgb_sigma: torch.Tensor, z_vals: torch.Tensor, *,
     alphas = 1.0 - torch.exp(-deltas * density)
     shifted = torch.cat([torch.ones_like(alphas[:, :, :1]), 1.0 - alphas + 1e-10],
                         dim=-2)
-    transmittance = torch.cumprod(shifted, dim=-2)[:, :, :-1]
+    transmittance = cumprod_of_nonzeros(shifted, -2)[:, :, :-1]
     weights = alphas * transmittance
     weights_sum = weights.sum(dim=2)
 

@@ -9,6 +9,7 @@ the same numbers).
 from __future__ import annotations
 
 import math
+import numbers
 
 import torch
 
@@ -30,7 +31,10 @@ def pixel_rays(fov, width: int, height: int, dtype=torch.float32,
     `row_offset`/`full_height` give rows [row_offset, row_offset+height) of a
     full_height-tall grid: those rows of its linspace, so a slab's rays are
     bit-equal to the whole image's (`parallel.render_ray_sharded`). A (B,)
-    tensor `fov` gives per-image focal lengths and returns (B, W*H, 3).
+    tensor or array `fov` gives per-image focal lengths and returns
+    (B, W*H, 3). No form of `fov` makes the host wait for the device: a
+    number is filled in on the device, a host array copied without a wait
+    (`tracing.to_device`).
     """
     x = torch.linspace(-1.0, 1.0, width, dtype=dtype, device=device)
     if row_offset is not None:
@@ -41,10 +45,11 @@ def pixel_rays(fov, width: int, height: int, dtype=torch.float32,
         y = torch.linspace(-1.0, 1.0, height, dtype=dtype, device=device)
     xx = x[None, :].expand(height, width).reshape(-1)
     yy = y[:, None].expand(height, width).reshape(-1)
-    # a number's copy to the device waits for the stream (a render's host
-    # wait; the `infer.h2d` span under a profiler)
-    with tracing.h2d_span(fov):
-        fov_t = torch.as_tensor(fov, dtype=dtype, device=device)
+    if isinstance(fov, numbers.Real):
+        # a fill kernel, the value its launch argument: no copy to wait on
+        fov_t = torch.full((), fov, dtype=dtype, device=device)
+    else:
+        fov_t = tracing.to_device(fov, device, dtype)
     inv_tan = 1.0 / torch.tan(fov_t * (math.pi / 360.0))
     if fov_t.ndim == 0:
         z = inv_tan.expand(xx.shape)

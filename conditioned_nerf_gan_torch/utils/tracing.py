@@ -41,11 +41,18 @@ The port's spans: `train.step` (the root of a train step), `train.d_step`,
 device time, `train.encode`; `gen.render` (a generator's forward) and
 `gen.chunk` (one ray chunk, and its recompute); `infer.encode` (a root,
 with device time) and `infer.render_batched` (a root), `infer.h2d` (a copy
-from host memory, which waits for the stream: a request's inputs, and a
-render's field of view, in a train step too; `h2d_span`) and
-`infer.to_host` (the rendered arrays to numpy); `kern.film_fwd`, `kern.film_bwd`,
-`kern.trilinear_fwd` and `kern.trilinear_bwd` (the CUDA branches of the
-kernel entry points).
+from host memory, `to_device`: a request's inputs, a render's per-image
+field of view) and `infer.to_host` (the rendered arrays to numpy);
+`kern.film_fwd`, `kern.film_bwd`, `kern.trilinear_fwd` and
+`kern.trilinear_bwd` (the CUDA branches of the kernel entry points).
+
+Host-to-device copies: `to_device` takes a request's inputs, and any host
+array a render is given, to the device inside an `infer.h2d` span. To a
+CUDA card it stages them in pinned memory and copies without waiting for
+the stream, so the host goes on issuing work behind what is queued. Two
+plain counters, kept whether or not a profiler runs, say how often each
+route ran: `h2d_staged` (pinned, no wait) and `h2d_waited` (a pageable
+copy to another device, which waits for its stream).
 """
 
 from __future__ import annotations
@@ -58,6 +65,9 @@ import time
 import torch
 
 MAX_RECORDS = 65536
+
+h2d_staged = 0  # host-to-device copies staged in pinned memory: no wait
+h2d_waited = 0  # host-to-device copies from pageable memory: each waits
 
 _records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
 _ids = itertools.count(1)
@@ -131,14 +141,34 @@ def span(name: str, device_time: bool = False):
     return _Span(name, device_time)
 
 
-def h2d_span(x):
-    """The `infer.h2d` span around a copy of x to a device where x lies in
-    host memory (an array, a Python number, a CPU tensor): a pageable copy,
-    which waits for the work queued on the stream; the no-op where x is on
-    a device already."""
+def to_device(x, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x (an array, a number, a tensor) as a `dtype` tensor on `device`
+    (None: the host), its values those of `torch.as_tensor(x, dtype=dtype)`.
+
+    A tensor on a device already goes as `torch.as_tensor` takes it. From
+    host memory x is converted on the host and copied, so the result never
+    shares the caller's memory: to the host, a copy; to a CUDA card, through
+    pinned memory with `non_blocking=True`, which returns once the host has
+    read x and leaves the stream's queued work running (`h2d_staged`); to
+    any other device, a plain copy (`h2d_waited`)."""
+    global h2d_staged, h2d_waited
     if isinstance(x, torch.Tensor) and x.device.type != "cpu":
-        return _OFF
-    return span("infer.h2d")
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    device = torch.device("cpu" if device is None else device)
+    with span("infer.h2d"):
+        host = torch.as_tensor(x, dtype=dtype)
+        if device.type == "cpu":
+            return host.clone()
+        if _stages(device):
+            h2d_staged += 1
+            return host.pin_memory().to(device, non_blocking=True)
+        h2d_waited += 1
+        return host.to(device)
+
+
+def _stages(device: torch.device) -> bool:
+    """Whether a copy to `device` is staged in pinned memory: a CUDA card."""
+    return device.type == "cuda"
 
 
 def records() -> list[dict]:

@@ -1,7 +1,9 @@
 """Card-only tests of the hand-written CUDA kernels (marker `cuda`): the
 FiLM-SIREN forward (K1) and backward (K2), each at Din 3 and 32, the
 trilinear sampler and its backward, and the study kernels (K3, K4 v4 and
-v5), against their plain versions; and one Trainer step on the card.
+v5), against their plain versions; one Trainer step on the card; and a
+render with its backward, a train step and a request that never make the
+host wait for the stream.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where only the port is installed:
@@ -663,3 +665,149 @@ def test_one_trainer_step_on_the_card(tmp_path):
             tfs.film_siren_mlp_bwd.launches - before[1]) == (4, 2)
     assert (out / "checkpoints" / "0.pt").exists()
     assert np.isfinite(trainer.histories["photometry_losses"]).all()
+
+
+# ---------------------------------------------------------------------------
+# no host wait on the stream inside a render, a train step or a request
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def thesis_bench():
+    """The thesis preset at stage 2 (its widths, the kernels' policy) cut
+    to batch 2 at 16^2, 6 + 6 samples in 4 ray chunks, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from conditioned_nerf_gan_torch.training import build_stage_bench
+
+    bench = build_stage_bench("thousand", stage=2, meta_overrides=dict(
+        batch_size=2, img_size=16, num_steps=6, ray_chunks=4))
+    for net in (bench.generator, bench.encoder, bench.discriminator):
+        net.cuda()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in bench.batch.items()}
+    return bench, batch
+
+
+def _without_waits(run):
+    """Run `run` once to build and warm every kernel and shape, then once
+    under `torch.cuda.set_sync_debug_mode("error")`, where any call that
+    makes the host wait for the device raises, on autograd's backward
+    thread too. Returns the copy counters' moves in the second run:
+    (staged, waited)."""
+    from conditioned_nerf_gan_torch.utils import tracing
+
+    run()
+    torch.cuda.synchronize()
+    staged, waited = tracing.h2d_staged, tracing.h2d_waited
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return tracing.h2d_staged - staged, tracing.h2d_waited - waited
+
+
+def test_a_render_and_its_backward_never_wait(thesis_bench):
+    from conditioned_nerf_gan_torch.models.pointnet import encode_pcl
+
+    bench, batch = thesis_bench
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run():
+        z, _ = encode_pcl(bench.encoder, batch["pcl"])
+        img, depth = bench.generator(z, batch["cam2world"], bench.config.render,
+                                     generator=gen, nerf_noise=bench.nerf_noise)
+        (img.square().mean() + depth.mean()).backward()
+
+    assert _without_waits(run) == (0, 0)
+
+
+def test_a_train_step_never_waits(thesis_bench):
+    from conditioned_nerf_gan_torch.training import create_train_state, make_train_step
+
+    bench, batch = thesis_bench
+    state = create_train_state(bench.generator, bench.encoder, bench.discriminator,
+                               bench.config)
+    step = make_train_step(bench.config)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def run():
+        step(state, batch, gen, bench.alpha, bench.nerf_noise)
+
+    assert _without_waits(run) == (0, 0)
+
+
+def test_a_request_never_waits(tmp_path):
+    """`Inferencer.encode` then `generate_img` from numpy clouds and
+    cameras: two copies staged in pinned memory, none that waits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from conditioned_nerf_gan_torch.infer.inference import (
+        Inferencer,
+        build_models,
+        load_metadata,
+        save_checkpoint,
+    )
+
+    G, E = build_models(load_metadata(30000), generator=torch.Generator().manual_seed(0))
+    ckpt = save_checkpoint(tmp_path / "checkpoints" / "30000.pt", 30000, G, E)
+    inf = Inferencer(ckpt, load_dataset=False, device="cuda", num_imgs=2, image_size=16)
+    inf.curriculum.update(num_steps=6, ray_chunks=4)
+    rng = np.random.default_rng(2)
+    pcl = rng.uniform(-0.4, 0.4, (2, 4096, 6)).astype(np.float32)
+    from conditioned_nerf_gan_torch.ops import create_cam2world_matrix, sample_camera_positions
+
+    cams = create_cam2world_matrix(sample_camera_positions(
+        2, cam_r_start=0.7, cam_r_end=1.5, uniforms=torch.from_numpy(
+            rng.uniform(0.1, 0.9, (2, 3)).astype(np.float32)))).numpy()
+
+    def run():
+        inf.generate_img(inf.encode({"pcl": pcl}), cams)
+
+    assert _without_waits(run) == (2, 0)
+
+
+@pytest.mark.parametrize("fov", [49.13, np.array([30.0, 49.13, 75.0], np.float32)],
+                         ids=["number", "per_image"])
+def test_rays_of_a_host_fov_equal_those_of_the_fov_on_the_card(fov):
+    """A number filled in on the card, or an array copied without a wait,
+    gives the rays of the same fov copied with `torch.as_tensor` (the
+    earlier formulation: a tensor on the card takes that path unchanged)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from conditioned_nerf_gan_torch.ops import pixel_rays
+
+    copied = torch.as_tensor(fov, dtype=torch.float32, device="cuda")
+    for rows in ({}, dict(row_offset=5, full_height=32)):
+        got = pixel_rays(fov, 32, 8, device="cuda", **rows)
+        want = pixel_rays(copied, 32, 8, device="cuda", **rows)
+        assert torch.equal(got, want)
+
+
+def test_transmittance_grads_on_the_card_bit_equal_to_torch_cumprod(monkeypatch):
+    """The render's integrate at a training chunk's shape (12 x 1,024 rays
+    of 96 samples): its grads without torch's test for zeros in the
+    cumprod equal torch.cumprod's, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from conditioned_nerf_gan_torch.ops import integration, volume_integrate
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, R, S = 12, 1024, 96
+    rgb_sigma = torch.randn((B, R, S, 4), generator=gen, device="cuda") * 3
+    rgb_sigma[0, :64, S // 2:, 3] = 1e4
+    z = torch.sort(torch.rand((B, R, S, 1), generator=gen, device="cuda"), dim=2)[0] + 0.7
+    g = [torch.randn(s, generator=gen, device="cuda")
+         for s in ((B, R, 3), (B, R, 1), (B, R, S, 1))]
+
+    def grads():
+        x = rgb_sigma.clone().requires_grad_()
+        outs = volume_integrate(x, z, white_back=True)
+        sum((o * gi).sum() for o, gi in zip(outs, g)).backward()
+        return outs, x.grad
+
+    outs, grad = grads()
+    monkeypatch.setattr(integration, "cumprod_of_nonzeros", torch.cumprod)
+    outs_before, grad_before = grads()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs, outs_before))
+    assert torch.isfinite(grad).all() and torch.equal(grad, grad_before)

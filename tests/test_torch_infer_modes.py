@@ -530,3 +530,56 @@ def test_cli_modes_refuse_without_a_card(runs, capsys):
     assert "--device cpu" in capsys.readouterr().err
     assert main([str(runs.tckpt), "--interpolate", "--device", "cpu"]) == 2
     assert "--interpolate_src" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# a request's inputs on their way to the device
+# ---------------------------------------------------------------------------
+def _array(source):
+    a = np.random.default_rng(4).normal(size=(2, 5, 6))
+    return {"numpy_f64": a, "numpy_f32": a.astype(np.float32),
+            "cpu_tensor_f64": torch.from_numpy(a),
+            "cpu_tensor_f32": torch.from_numpy(a.astype(np.float32))}[source]
+
+
+@pytest.mark.parametrize("source", ["numpy_f64", "numpy_f32", "cpu_tensor_f64",
+                                    "cpu_tensor_f32"])
+def test_request_inputs_copy_as_fp32(source):
+    """`Inferencer._tensor` gives the fp32 values `torch.as_tensor` gives,
+    in memory of its own: the caller may change the source after the call."""
+    x = _array(source)
+    want = torch.as_tensor(x, dtype=torch.float32).clone()
+    got = Inferencer._tensor(types.SimpleNamespace(device=torch.device("cpu")), x)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    x[...] = 7.0
+    assert torch.equal(got, want)
+
+
+def test_copy_counters_count_each_route_once(monkeypatch):
+    """A copy to the host crosses to no device and counts nothing; one to
+    a device other than a card waits (`h2d_waited`); one to a card is
+    staged in pinned memory (`h2d_staged`; the staging stood in for here);
+    a tensor on a device already crosses nothing."""
+    from conditioned_nerf_gan_torch.utils import tracing
+
+    def counts():
+        return tracing.h2d_staged, tracing.h2d_waited
+
+    staged, waited = counts()
+    cpu, meta = (types.SimpleNamespace(device=torch.device(d)) for d in ("cpu", "meta"))
+    Inferencer._tensor(cpu, _array("numpy_f64"))
+    assert counts() == (staged, waited)
+    out = Inferencer._tensor(meta, _array("numpy_f64"))
+    assert out.device.type == "meta" and out.dtype == torch.float32 and out.shape == (2, 5, 6)
+    assert counts() == (staged, waited + 1)
+    pinned = []
+    monkeypatch.setattr(tracing, "_stages", lambda device: True)
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda self: pinned.append(self) or self.clone())
+    out = Inferencer._tensor(meta, _array("numpy_f64"))
+    assert out.device.type == "meta" and out.dtype == torch.float32
+    assert [p.dtype for p in pinned] == [torch.float32]
+    assert counts() == (staged + 1, waited + 1)
+    Inferencer._tensor(meta, out)
+    Inferencer._on_device(meta, out)
+    assert counts() == (staged + 1, waited + 1)

@@ -4,6 +4,8 @@ Tolerance 1e-6 unless stated: both sides are fp32 elementwise/small-sum math,
 so only rounding order differs (observed max differences in comments).
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -12,6 +14,7 @@ import torch
 
 from conditioned_nerf_gan_tpu import ops as jops
 from conditioned_nerf_gan_torch import ops as tops
+from conditioned_nerf_gan_torch.ops import rays as trays
 
 TOL = 1e-6
 
@@ -42,6 +45,54 @@ def test_initial_rays(case):
     for t, j in ((tp, jp), (tz, jz), (td, jd)):
         assert tuple(t.shape) == j.shape
         close(t, j)  # observed 1.2e-7 (linspace rounding)
+
+
+def _pixel_rays_before(fov, width, height, dtype=torch.float32, row_offset=None,
+                       full_height=None, device=None):
+    """`ops.pixel_rays` as it was before a number became a device fill: the
+    fov through `torch.as_tensor`, then the same `tan` and arithmetic."""
+    x = torch.linspace(-1.0, 1.0, width, dtype=dtype, device=device)
+    if row_offset is not None:
+        fh = full_height if full_height is not None else height
+        y = torch.linspace(-1.0, 1.0, fh, dtype=dtype,
+                           device=device)[row_offset:row_offset + height]
+    else:
+        y = torch.linspace(-1.0, 1.0, height, dtype=dtype, device=device)
+    xx = x[None, :].expand(height, width).reshape(-1)
+    yy = y[:, None].expand(height, width).reshape(-1)
+    fov_t = torch.as_tensor(fov, dtype=dtype, device=device)
+    inv_tan = 1.0 / torch.tan(fov_t * (math.pi / 360.0))
+    if fov_t.ndim == 0:
+        return tops.normalize_vecs(torch.stack([xx, yy, inv_tan.expand(xx.shape)], dim=-1))
+    B, n = fov_t.shape[0], xx.shape[0]
+    return tops.normalize_vecs(torch.stack(
+        [xx[None].expand(B, n), yy[None].expand(B, n), inv_tan[:, None].expand(B, n)],
+        dim=-1))
+
+
+FOV_FORMS = {
+    "python_float": 49.13,
+    "cpu_tensor_0d": torch.tensor(49.13),
+    "numpy_per_image": np.array([30.0, 49.13, 75.0], np.float32),
+    "numpy_per_image_f64": np.array([30.0, 49.13, 75.0]),
+}
+
+
+@pytest.mark.parametrize("rows", [{}, dict(row_offset=3, full_height=12)])
+@pytest.mark.parametrize("form", sorted(FOV_FORMS))
+def test_rays_bit_equal_to_the_copied_fov(form, rows, monkeypatch):
+    """The rays of every form of fov (a number is a fill on the device, an
+    array a copy that does not wait) are bit-equal to those of the earlier
+    formulation, which copied each form with `torch.as_tensor`."""
+    fov = FOV_FORMS[form]
+    got = tops.pixel_rays(fov, 10, 5, **rows)
+    want = _pixel_rays_before(fov, 10, 5, **rows)
+    assert got.shape == want.shape and torch.equal(got, want)
+    now = tops.get_initial_rays(3, 7, fov, (10, 5), 0.25, 1.95, **rows)
+    monkeypatch.setattr(trays, "pixel_rays", _pixel_rays_before)
+    before = tops.get_initial_rays(3, 7, fov, (10, 5), 0.25, 1.95, **rows)
+    for a, b in zip(now, before, strict=True):
+        assert a.shape == b.shape and torch.equal(a, b)
 
 
 def test_perturb_and_transform_rays():
@@ -134,3 +185,33 @@ def test_volume_integrate(opts):
                               noise_std=0.5, noise=torch.from_numpy(noise), **opts)
     for a, b in zip(t, j):
         close(a, b, atol=2e-6)  # observed 4.8e-7: exp/cumprod rounding
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(white_back=True, clamp_mode="softplus"),
+                                  dict(last_back=True)])
+def test_volume_integrate_grads_bit_equal_to_torch_cumprod(opts, monkeypatch):
+    """The transmittance's cumprod differentiates without torch's test for
+    zeros (a wait on the device): its factors are never zero, so the grads
+    are torch.cumprod's, bit for bit, with large densities too (factors
+    of 1e-10)."""
+    from conditioned_nerf_gan_torch.ops import integration
+
+    rng = np.random.default_rng(6)
+    B, R, S = 2, 6, 9
+    rgb_sigma = rng.normal(0, 3, (B, R, S, 4)).astype(np.float32)
+    rgb_sigma[0, :2, 3:, 3] = 1e4
+    z = np.sort(rng.uniform(0.25, 1.95, (B, R, S, 1)), axis=2).astype(np.float32)
+    g = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+         for s in ((B, R, 3), (B, R, 1), (B, R, S, 1))]
+
+    def grads():
+        x = torch.from_numpy(rgb_sigma).requires_grad_()
+        outs = tops.volume_integrate(x, torch.from_numpy(z), **opts)
+        sum((o * gi).sum() for o, gi in zip(outs, g)).backward()
+        return outs, x.grad
+
+    outs, grad = grads()
+    monkeypatch.setattr(integration, "cumprod_of_nonzeros", torch.cumprod)
+    outs_before, grad_before = grads()
+    assert all(torch.equal(a, b) for a, b in zip(outs, outs_before))
+    assert torch.isfinite(grad).all() and torch.equal(grad, grad_before)

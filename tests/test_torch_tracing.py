@@ -120,9 +120,9 @@ def test_a_train_step_records_its_spans_under_the_profiler():
         assert len(chunks) == CHUNKS
     # and each checkpointed chunk's recompute in the G step's backward
     assert len(by_name["gen.chunk"]) == 3 * CHUNKS
-    # each render's field of view, a number copied to the device
-    assert sorted(r["parent"] for r in by_name["infer.h2d"]) == sorted(
-        r["id"] for r in renders)
+    # each render's field of view, a number, is filled in on the device:
+    # no copy from the host in a train step
+    assert "infer.h2d" not in by_name
     for r in got:
         assert r["end_ns"] >= r["start_ns"] and r["host_ms"] >= 0
         assert r["device_ms"] is None  # no CUDA here
