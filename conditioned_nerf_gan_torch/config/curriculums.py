@@ -138,7 +138,7 @@ CURRICULUM_KEY_DOCS: dict[str, str] = {
     "compute_dtype": "[TPU] matmul compute dtype policy, e.g. 'bfloat16' (params/grads/sin epilogues stay fp32); the bf16 analogue of the reference's fp16 AMP",
     "use_fast_sin": "[TPU] polynomial sin approximation in SIREN layers (~3e-6 max err, ops/fastmath.py)",
     "use_pallas": "[TPU] fused FiLM-SIREN point-eval Pallas kernel (self-gates on TPU + bf16 + fast_sin; forces the manual shard_map step on multi-device meshes)",
-    "ray_chunks": "[TPU] rematerialized ray-chunked rendering: >1 splits img_size² rays into chunks, trading recompute for HBM (the reference's batch_split analogue on the ray axis)",
+    "ray_chunks": "[TPU] ray-chunked rendering: >1 splits img_size² rays into chunks rendered one at a time (the reference's batch_split analogue on the ray axis); under grad each chunk keeps its activations where the device has room for all of them, and else chunks after the first are rematerialized in the backward, trading recompute for memory",
     "steps_per_dispatch": "[TPU] scan k train steps into one dispatched program (amortizes the per-dispatch host↔device round trip k×; identical math/rng draws — float-reassociation-level drift vs the per-step program only — windows auto-trim at curriculum milestones and print/sample/eval boundaries; per-stage overridable, default 1)",
     "max_chain_window_bytes": "[TPU] HBM input budget for one chained (steps_per_dispatch) window: k is clamped per stage so the stacked (k,B,...) batch argument stays under this many bytes (default 256 MiB — never binds on the few-MB thousand batches, holds the ~100 MB/batch voxel families to ~2 chained steps)",
     "multifold": "[TPU] override the train-list replication factor (reference datasets.py:239-241 hardcodes x3000 for the twenty/single subsets, x1 otherwise); chained steps_per_dispatch windows cannot span epochs, so small custom datasets need epochs of >= k batches to chain — raise this instead of lowering k",

@@ -4,22 +4,34 @@ Conditioning latent + cameras -> rendered images: ray generation, coarse
 SIREN evaluation, hierarchical fine resampling (detached), stable sort-merge,
 final integration, pixels scaled to [-1, 1], a z-depth map. Images are NHWC.
 
-With grad enabled and `ray_chunks` > 1, each chunk runs under
-`torch.utils.checkpoint`, as the JAX package's `chunk_fn` remat does. Every
-random number of a render (perturbation, fine-sample uniforms, density
-noise) is drawn up front for the whole image: the recompute of a
-checkpointed chunk replays the same fine samples and noise, and chunked and
-unchunked renders draw the same numbers. The conditioning `z` is whatever
+With grad enabled and `ray_chunks` > 1, a render keeps every chunk's
+activations for the backward when they fit, and replays nothing. The first
+chunk runs as it is; its retained bytes are the rise of the allocator's
+`memory_allocated` across it. If the other chunks' share, that many bytes
+each, fits in half of what the device still has available
+(`activation_room`; the other half is for the backward's transients: K2's
+scratch, R1's double backward, the optimizers), they run as it is too;
+otherwise each runs under `torch.utils.checkpoint`, as the JAX package's
+`chunk_fn` remat does, and its forward is replayed in the backward. A
+device without allocator stats (the CPU) keeps every chunk.
+`utils.tracing.chunks_kept` and `chunks_replayed` count the two. The JAX
+package's `save_siren_outputs` (a lever that saved the SIREN outputs across
+its remat, measured neutral) has no port: a chunk that fits keeps all of
+its activations, and one that does not saves nothing but its inputs.
+
+Every random number of a render (perturbation, fine-sample uniforms,
+density noise) is drawn up front for the whole image: a replayed chunk
+sees the same fine samples and noise, and chunked, unchunked, kept and
+replayed renders draw the same numbers. The conditioning `z` is whatever
 the SIREN takes: a latent, or the voxel family's (feature volume, global)
 pair, (pyramid, global) pair or bare volume, which every chunk (and its
-recompute) reads whole; with grad on the kernel route each volume, a
+replay) reads whole; with grad on the kernel route each volume, a
 pyramid's every level, goes through `ops.grid_sample.one_volume_grad` once
 a render (`one_grad_per_volume`), so the backward of every chunk's lookups
 adds into one dV a volume.
 Under a torch profiler a render records the span `gen.render`, and each ray
-chunk `gen.chunk`, its recompute in the backward too (`utils/tracing.py`).
-`save_siren_outputs` (a measured-neutral training lever of the JAX
-package) is not ported.
+chunk `gen.chunk`, a replayed chunk's replay in the backward too
+(`utils/tracing.py`).
 """
 
 from __future__ import annotations
@@ -47,6 +59,26 @@ def one_grad_per_volume(z):
     if isinstance(z, (tuple, list)):
         return type(z)(one_grad_per_volume(part) for part in z)
     return z
+
+
+def allocated_bytes(device: torch.device) -> int:
+    """The bytes the allocator has handed out on `device` (a host-side
+    counter: no wait); 0 on a device without allocator stats."""
+    return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+
+
+def activation_room(device: torch.device) -> int | None:
+    """Bytes that a render under grad may keep of its chunks' activations on
+    `device`: half of what is still available there, the free memory
+    `cudaMemGetInfo` reports plus what torch's allocator has reserved and
+    not handed out. `cudaMemGetInfo` returns without waiting for the
+    device's queued work.
+    None on a device without allocator stats (the CPU): keep every chunk."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    unused = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return (free + unused) // 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,16 +237,27 @@ class ImplicitGenerator3d(nn.Module):
                     return self._ray_pipeline(z, *chunk_rays[:4], config,
                                               *chunk_rays[4:], nerf_noise)
 
-            remat = torch.is_grad_enabled()
+            grad = torch.is_grad_enabled()
+            replay = False
             pixels, distances = [], []
             for i in range(chunks):
                 sl = slice(i * r, (i + 1) * r)
                 chunk_rays = [None if t is None else t[:, sl] for t in rays]
-                if remat:  # keep only the chunk's inputs for the backward
+                if replay:  # keep only the chunk's inputs for the backward
                     pix, dist = checkpoint(run_chunk, *chunk_rays,
                                            use_reentrant=False)
+                    tracing.chunks_replayed += 1
+                elif grad and i == 0:  # the rest keep theirs too if they fit
+                    before = allocated_bytes(device)
+                    pix, dist = run_chunk(*chunk_rays)
+                    kept = max(allocated_bytes(device) - before, 0)
+                    room = activation_room(device)
+                    replay = room is not None and (chunks - 1) * kept > room
+                    tracing.chunks_kept += 1
                 else:
                     pix, dist = run_chunk(*chunk_rays)
+                    if grad:
+                        tracing.chunks_kept += 1
                 pixels.append(pix)
                 distances.append(dist)
             pixels = torch.cat(pixels, dim=1)

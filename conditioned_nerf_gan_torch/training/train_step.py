@@ -66,7 +66,8 @@ from .losses import gan_d_loss, gan_g_loss, photometric_loss, r1_penalty
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
     """Per-stage options of the train step (the JAX package's, less `remat`:
-    here the generator checkpoints per ray chunk whenever grad is on)."""
+    here the generator decides per render, from the device's free memory,
+    whether its ray chunks keep their activations or are checkpointed)."""
 
     render: RenderConfig
     batch_split: int = 1

@@ -27,10 +27,10 @@ traced window, an operator's own) a span
 
 The root is the outermost span open in the process, whatever its thread:
 autograd runs a CUDA backward on a thread of its own, and the spans opened
-there (a checkpointed chunk's recompute, the backward kernel) carry the
-root of the step that called `backward()`. Spans add no tensor operation
-and draw no random number, so a checkpointed chunk whose forward and
-recompute see the profiler differently computes the same thing.
+there (a replayed chunk's replay, the backward kernel) carry the root of
+the step that called `backward()`. Spans add no tensor operation and draw
+no random number, so a checkpointed chunk whose forward and replay see the
+profiler differently computes the same thing.
 
 The store keeps the newest `MAX_RECORDS` records and holds no tensor;
 `records()` reads them (device milliseconds worked out from the events
@@ -39,7 +39,8 @@ then, which waits for them), `clear()` empties it.
 The port's spans: `train.step` (the root of a train step), `train.d_step`,
 `train.g_step`, `train.optim` (a `ClippedAdam.step`: clip and Adam) with
 device time, `train.encode`; `gen.render` (a generator's forward) and
-`gen.chunk` (one ray chunk, and its recompute); `infer.encode` (a root,
+`gen.chunk` (one ray chunk, and the replay in the backward of a chunk
+that ran under `torch.utils.checkpoint`); `infer.encode` (a root,
 with device time) and `infer.render_batched` (a root), `infer.h2d` (a copy
 from host memory, `to_device`: a request's inputs, a render's per-image
 field of view) and `infer.to_host` (the rendered arrays to numpy);
@@ -53,6 +54,12 @@ the stream, so the host goes on issuing work behind what is queued. Two
 plain counters, kept whether or not a profiler runs, say how often each
 route ran: `h2d_staged` (pinned, no wait) and `h2d_waited` (a pageable
 copy to another device, which waits for its stream).
+
+Ray chunks under grad (`models/generator.py`): two more plain counters,
+also kept whether or not a profiler runs. `chunks_kept` counts the chunks
+rendered under grad whose activations autograd keeps for the backward;
+`chunks_replayed` those run under `torch.utils.checkpoint`, whose forward
+the backward replays. A render without grad counts in neither.
 """
 
 from __future__ import annotations
@@ -68,6 +75,8 @@ MAX_RECORDS = 65536
 
 h2d_staged = 0  # host-to-device copies staged in pinned memory: no wait
 h2d_waited = 0  # host-to-device copies from pageable memory: each waits
+chunks_kept = 0  # ray chunks under grad whose activations autograd keeps
+chunks_replayed = 0  # ray chunks under grad replayed in the backward
 
 _records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
 _ids = itertools.count(1)

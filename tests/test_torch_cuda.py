@@ -1,9 +1,10 @@
 """Card-only tests of the hand-written CUDA kernels (marker `cuda`): the
 FiLM-SIREN forward (K1) and backward (K2), each at Din 3 and 32, the
 trilinear sampler and its backward, and the study kernels (K3, K4 v4 and
-v5), against their plain versions; one Trainer step on the card; and a
+v5), against their plain versions; one Trainer step on the card; a
 render with its backward, a train step and a request that never make the
-host wait for the stream.
+host wait for the stream; and, at the thesis G step's shapes, ray chunks
+that keep their activations against chunks replayed in the backward.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where only the port is installed:
@@ -811,3 +812,115 @@ def test_transmittance_grads_on_the_card_bit_equal_to_torch_cumprod(monkeypatch)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(outs, outs_before))
     assert torch.isfinite(grad).all() and torch.equal(grad, grad_before)
+
+
+# ---------------------------------------------------------------------------
+# ray chunks that keep their activations, at the thesis G step's shapes
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def thesis_stage2():
+    """The thesis preset at stage 2, uncut (batch 12, 128^2, 48 + 48
+    samples in 16 ray chunks, 65,536-point clouds), on the card, with a
+    function that runs its G render: the clouds encoded, the images
+    rendered from the step's seeded stream and a loss on them backed up
+    into G and E."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from conditioned_nerf_gan_torch.models.pointnet import encode_pcl
+    from conditioned_nerf_gan_torch.training import build_stage_bench
+
+    bench = build_stage_bench("thousand", stage=2)
+    assert (bench.meta["batch_size"], bench.config.render.img_size,
+            bench.config.render.num_steps, bench.config.render.ray_chunks) == (12, 128, 48, 16)
+    for net in (bench.generator, bench.encoder, bench.discriminator):
+        net.cuda()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in bench.batch.items()}
+
+    def g_render():
+        z, _ = encode_pcl(bench.encoder, batch["pcl"])
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        img, depth = bench.generator(z, batch["cam2world"], bench.config.render,
+                                     generator=gen, nerf_noise=bench.nerf_noise)
+        (img.square().mean() + depth.mean()).backward()
+
+    return bench, g_render
+
+
+def _grads_and_peak(bench, g_render):
+    """Run `g_render` from cleared grads -> (every G and E grad, the rise of
+    the allocator's peak over what was allocated before it)."""
+    nets = (bench.generator, bench.encoder)
+    for net in nets:
+        net.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g_render()
+    torch.cuda.synchronize()
+    grads = {f"{i}/{n}": p.grad.clone() for i, net in enumerate(nets)
+             for n, p in net.named_parameters() if p.grad is not None}
+    return grads, torch.cuda.max_memory_allocated() - base
+
+
+def test_kept_chunks_match_the_replay_at_the_thesis_shapes(thesis_stage2, monkeypatch):
+    """The 16 chunks of the thesis G render keep their activations on an
+    80 GB card (16 kept, none replayed); their grads equal, bit for bit,
+    those of the same render with chunks 1-15 replayed in the backward
+    (no room handed in), and they raise the peak over the replay's by at
+    most 1.25 x 15 x the bytes chunk 0 retained."""
+    from conditioned_nerf_gan_torch.models import generator as generator_module
+    from conditioned_nerf_gan_torch.utils import tracing
+
+    bench, g_render = thesis_stage2
+    g_render()  # build and warm every kernel and shape
+    readings = []
+    allocated = generator_module.allocated_bytes
+
+    def read(device):
+        readings.append(allocated(device))
+        return readings[-1]
+
+    monkeypatch.setattr(generator_module, "allocated_bytes", read)
+    counts = tracing.chunks_kept, tracing.chunks_replayed
+    kept, kept_peak = _grads_and_peak(bench, g_render)
+    assert (tracing.chunks_kept - counts[0], tracing.chunks_replayed - counts[1]) == (16, 0)
+    chunk0 = readings[1] - readings[0]
+    monkeypatch.setattr(generator_module, "activation_room", lambda device: 0)
+    counts = tracing.chunks_kept, tracing.chunks_replayed
+    replayed, replay_peak = _grads_and_peak(bench, g_render)
+    assert (tracing.chunks_kept - counts[0], tracing.chunks_replayed - counts[1]) == (1, 15)
+    assert kept.keys() == replayed.keys() and len(kept) > 0
+    for name in kept:
+        assert torch.equal(kept[name], replayed[name]), name
+    assert chunk0 > 0
+    assert 0 < kept_peak - replay_peak <= 1.25 * 15 * chunk0, (kept_peak, replay_peak, chunk0)
+
+
+def test_a_g_render_at_the_thesis_shapes_never_waits(thesis_stage2):
+    _, g_render = thesis_stage2
+    assert _without_waits(g_render) == (0, 0)
+
+
+def test_the_room_is_read_without_waiting_for_the_stream():
+    """`activation_room` reads the card's free memory while the stream is
+    busy (about half a second of `torch.cuda._sleep` queued) and returns
+    long before the stream drains."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import time
+
+    from conditioned_nerf_gan_torch.models.generator import activation_room
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    activation_room(device)
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(1_000_000_000)
+    done.record()
+    t0 = time.perf_counter()
+    room = activation_room(device)
+    took = time.perf_counter() - t0
+    busy = not done.query()
+    torch.cuda.synchronize()
+    assert busy and took < 0.05, took
+    assert 0 < room < torch.cuda.get_device_properties(device).total_memory

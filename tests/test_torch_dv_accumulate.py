@@ -39,6 +39,7 @@ from conditioned_nerf_gan_torch.training import (
     create_train_state,
     make_train_step,
 )
+from test_torch_train import _chunk_memory
 from test_torch_voxel import _trilerp_inputs, _voxels
 
 UNET = dict(in_channels=4, out_channels=8, f_maps=8, num_levels=3, return_global=True)
@@ -151,14 +152,15 @@ def _render_grads(tenc, tgen, vox, cams, chunks, renders=1):
 
 @pytest.mark.parametrize("renders", [1, 2])
 def test_chunked_render_takes_one_buffer_a_render(renders, monkeypatch):
-    """A `dg` render in 4 ray chunks under checkpoint on the kernel route:
-    every lookup's scatter (coarse and fine in each chunk, never in a
-    recompute) goes into the render's one buffer, zeroed once; the volume's
-    grad and every parameter's equal
+    """A `dg` render in 4 ray chunks, chunks 1-3 under checkpoint (no room
+    handed in), on the kernel route: every lookup's scatter (coarse and fine
+    in each chunk, never in a replay) goes into the render's one buffer,
+    zeroed once; the volume's grad and every parameter's equal
     the unchunked render's under plain autograd. Two renders of one volume
     keep a buffer each."""
     tenc, tgen, vox, cams = _models(seed=35)
     ref_vol, ref = _render_grads(tenc, tgen, vox, cams, chunks=0, renders=renders)
+    _chunk_memory(monkeypatch, 4, keep=False)
     calls = _kernel_route(monkeypatch)
     got_vol, got = _render_grads(tenc, tgen, vox, cams, chunks=4, renders=renders)
     per_render = 2 * 4  # coarse and fine lookups in each of 4 chunks

@@ -1,6 +1,7 @@
 """The slice end to end on the CPU: the port's generator, encoder -> render
 path and CLI vs the JAX package, plus the port's import hygiene."""
 
+import itertools
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +21,8 @@ from conditioned_nerf_gan_tpu.models import encode_pcl as j_encode_pcl
 from conditioned_nerf_gan_torch import bridge
 from conditioned_nerf_gan_torch.models import ImplicitGenerator3d, RenderConfig
 from conditioned_nerf_gan_torch.models import ResnetPointnet, encode_pcl
+from conditioned_nerf_gan_torch.models import generator as generator_module
+from conditioned_nerf_gan_torch.utils import tracing
 
 REPO = Path(__file__).resolve().parent.parent
 Z, H = 16, 32
@@ -84,6 +87,55 @@ def test_generator_matches_jax(chunks, slab, monkeypatch):
     z = torch.from_numpy(np.random.default_rng(5).normal(size=(2, Z)).astype(np.float32))
     _compare(jgen, params, tgen, z, _cams(2, seed=6), chunks, **slab)
     assert len(calls) == 2 * max(chunks, 1)  # coarse + fine per ray chunk
+
+
+def _render_with_grad(tgen, chunks):
+    """A render of 2 images in `chunks` ray chunks under grad, its pixels
+    and depth summed and backed up -> the chunk counters' moves and the
+    number of `gen.chunk` spans, the chunks' forwards and the backward's
+    replays (recorded under a CPU profiler)."""
+    z = torch.from_numpy(np.random.default_rng(16).normal(size=(2, Z)).astype(np.float32))
+    kept, replayed = tracing.chunks_kept, tracing.chunks_replayed
+    tracing.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        pix, depth = tgen(z, _cams(2, seed=17), RenderConfig(ray_chunks=chunks, **CFG))
+        (pix.sum() + depth.sum()).backward()
+    spans = sum(r["name"] == "gen.chunk" for r in tracing.records())
+    return tracing.chunks_kept - kept, tracing.chunks_replayed - replayed, spans
+
+
+@pytest.mark.parametrize("room,replayed", [
+    (3 * 1000 - 1, 3), (3 * 1000, 0), (10 ** 12, 0)], ids=["short", "exact", "ample"])
+def test_a_render_keeps_its_chunks_where_the_room_holds_them(room, replayed, monkeypatch):
+    """Under grad the render reads what its first of 4 chunks retained
+    (here handed in: the CPU keeps no allocator stats) and the room left
+    for activations: where 3 times those bytes exceed the room, chunks 1-3
+    run under `torch.utils.checkpoint` and are replayed in the backward;
+    where they fit, every chunk keeps its activations."""
+    reads = itertools.count(0, 1000)
+    monkeypatch.setattr(generator_module, "allocated_bytes", lambda device: next(reads))
+    monkeypatch.setattr(generator_module, "activation_room", lambda device: room)
+    tgen = ImplicitGenerator3d(z_dim=Z, hidden_dim=H, **POLICY_T,
+                               generator=torch.Generator().manual_seed(18))
+    assert _render_with_grad(tgen, 4) == (4 - replayed, replayed, 4 + replayed)
+
+
+def test_the_chunk_counters_count_only_chunks_under_grad():
+    """On the CPU (no allocator stats) a render under grad keeps every
+    chunk: `chunks_kept` rises by the chunk count and nothing is replayed.
+    A render without grad, chunked or not, and an unchunked render with
+    grad move neither counter."""
+    tgen = ImplicitGenerator3d(z_dim=Z, hidden_dim=H, **POLICY_T,
+                               generator=torch.Generator().manual_seed(19))
+    assert generator_module.activation_room(torch.device("cpu")) is None
+    assert _render_with_grad(tgen, 4) == (4, 0, 4)
+    assert _render_with_grad(tgen, 0) == (0, 0, 0)
+    z = torch.from_numpy(np.random.default_rng(20).normal(size=(2, Z)).astype(np.float32))
+    kept, replayed = tracing.chunks_kept, tracing.chunks_replayed
+    with torch.no_grad():
+        for chunks in (0, 4):
+            tgen(z, _cams(2, seed=21), RenderConfig(ray_chunks=chunks, **CFG))
+    assert (tracing.chunks_kept, tracing.chunks_replayed) == (kept, replayed)
 
 
 def test_encoder_to_generator_matches_jax():

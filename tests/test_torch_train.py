@@ -5,6 +5,7 @@ through `conditioned_nerf_gan_torch.bridge`; inputs come from seeded numpy;
 renders are deterministic (JAX rng=None, port generator=None)."""
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from conditioned_nerf_gan_tpu.training import schedules as jschedules
 from conditioned_nerf_gan_tpu.training import train_step as jts
 from conditioned_nerf_gan_torch import bridge
 from conditioned_nerf_gan_torch.models import ImplicitGenerator3d, RenderConfig
+from conditioned_nerf_gan_torch.models import generator as generator_module
 from conditioned_nerf_gan_torch.models import ResnetPointnet, make_discriminator
 from conditioned_nerf_gan_torch.training import (
     TrainStepConfig,
@@ -74,6 +76,17 @@ def _cams(n, seed):
         n, cam_r_start=0.7, cam_r_end=1.5, uniforms=u))
 
 
+def _chunk_memory(monkeypatch, chunks, keep, chunk_bytes=1 << 20):
+    """The CPU keeps no allocator stats, so a render under grad is handed
+    its readings: its first chunk retains `chunk_bytes`, and the room for
+    the other chunks' activations is just enough for them (`keep`) or a
+    byte short (they are replayed in the backward)."""
+    reads = itertools.count(0, chunk_bytes)
+    room = (chunks - 1) * chunk_bytes - (0 if keep else 1)
+    monkeypatch.setattr(generator_module, "allocated_bytes", lambda device: next(reads))
+    monkeypatch.setattr(generator_module, "activation_room", lambda device: room)
+
+
 def _assert_grads_match(t_module, j_grads, rtol, atol_frac=0.0):
     """Each port grad against the JAX grad of the same bridged parameter:
     within rtol plus atol_frac of that parameter's largest JAX grad."""
@@ -109,11 +122,15 @@ def test_siren_grads_match_jax():
     _assert_grads_match(tgen, j_grads, rtol=1e-4, atol_frac=5e-5)
 
 
-@pytest.mark.parametrize("chunks", [0, 4], ids=["whole", "ray_chunks"])
-def test_generator_grads_match_jax(chunks):
+@pytest.mark.parametrize("chunks,keep", [(0, True), (4, True), (4, False)],
+                         ids=["whole", "ray_chunks", "ray_chunks_replayed"])
+def test_generator_grads_match_jax(chunks, keep, monkeypatch):
     """Gradients of a weighted sum of pixels and depth, deterministic render
-    (hierarchical, white background). With ray_chunks 4 the port checkpoints
-    each chunk and recomputes it in the backward."""
+    (hierarchical, white background). With ray_chunks 4 the port keeps each
+    chunk's activations where the room it is handed holds them, and else
+    runs chunks 1-3 under `torch.utils.checkpoint` and replays them in the
+    backward; both paths are held against JAX."""
+    _chunk_memory(monkeypatch, chunks, keep)
     jgen, params, tgen = _generators(seed=3)
     rng = np.random.default_rng(4)
     z = rng.normal(size=(2, Z)).astype(np.float32)
@@ -136,12 +153,14 @@ def test_generator_grads_match_jax(chunks):
     _assert_grads_match(tgen, j_grads, rtol=1e-3, atol_frac=2e-4)
 
 
-def test_chunked_grads_equal_unchunked_under_seeded_generator():
+def test_chunked_grads_equal_unchunked_under_seeded_generator(monkeypatch):
     """The checkpoint-RNG trap: a torch.Generator is not replayed by
-    torch.utils.checkpoint, so a chunk's recompute must not draw. The render
+    torch.utils.checkpoint, so a chunk's replay must not draw. The render
     draws every random number (perturbation, fine-sample uniforms, density
-    noise) for the whole image up front, so ray_chunks 4 gives the
-    unchunked render and gradient under the same seed."""
+    noise) for the whole image up front, so ray_chunks 4 with chunks 1-3
+    replayed (no room handed in) gives the unchunked render and gradient
+    under the same seed."""
+    _chunk_memory(monkeypatch, 4, keep=False)
     _, _, tgen = _generators(seed=6)
     z = torch.from_numpy(np.random.default_rng(7).normal(size=(2, Z)).astype(np.float32))
     cams = _cams(2, seed=8)
@@ -162,6 +181,35 @@ def test_chunked_grads_equal_unchunked_under_seeded_generator():
     for name in g0:
         torch.testing.assert_close(g4[name], g0[name], rtol=1e-5,
                                    atol=1e-5 * float(g0[name].abs().max()))
+
+
+def test_kept_and_replayed_chunks_give_bit_equal_grads(monkeypatch):
+    """A stochastic render (perturbation, fine-sample uniforms, density
+    noise) in 4 ray chunks under one seed: with every chunk's activations
+    kept, and with chunks 1-3 replayed in the backward, the pixels, depth
+    and every gradient are the same bits. The replay recomputes what the
+    kept path holds, and the backward runs the same operations in the same
+    order."""
+    tgen = ImplicitGenerator3d(z_dim=Z, hidden_dim=H, **POLICY_T,
+                               generator=torch.Generator().manual_seed(12))
+    z = torch.from_numpy(np.random.default_rng(13).normal(size=(2, Z)).astype(np.float32))
+    cams = _cams(2, seed=14)
+    results = []
+    for keep in (True, False):
+        _chunk_memory(monkeypatch, 4, keep)
+        tgen.zero_grad(set_to_none=True)
+        zz = z.clone().requires_grad_()
+        pix, depth = tgen(zz, cams, RenderConfig(ray_chunks=4, **CFG),
+                          generator=torch.Generator().manual_seed(15), nerf_noise=0.5)
+        (pix.square().sum() + depth.square().sum()).backward()
+        results.append((pix.detach(), depth.detach(), zz.grad,
+                        {n: p.grad.clone() for n, p in tgen.named_parameters()}))
+    (pix_k, depth_k, dz_k, g_k), (pix_r, depth_r, dz_r, g_r) = results
+    assert torch.equal(pix_k, pix_r) and torch.equal(depth_k, depth_r)
+    assert torch.equal(dz_k, dz_r)
+    assert g_k.keys() == g_r.keys()
+    for name in g_k:
+        assert torch.equal(g_k[name], g_r[name]), name
 
 
 @pytest.mark.parametrize("alpha", [0.5, 1.0])

@@ -36,7 +36,7 @@ from conditioned_nerf_gan_torch.training import (
     make_train_step,
 )
 from test_torch_dv_accumulate import _check_one_buffer, _kernel_route
-from test_torch_train import _DeterministicGenerator, _cams, _record_jax_grads
+from test_torch_train import _DeterministicGenerator, _cams, _chunk_memory, _record_jax_grads
 from test_torch_voxel import _voxels
 from test_torch_voxel_train import _record_port_grads
 
@@ -231,7 +231,8 @@ def test_variant_render_matches_jax(path):
 
 @pytest.mark.parametrize("path", ["featurepyramid", "dRes"])
 def test_chunked_render_takes_one_buffer_a_level(path, monkeypatch):
-    """A render in 4 ray chunks under checkpoint on the kernel route: each
+    """A render in 4 ray chunks, chunks 1-3 under checkpoint (no room
+    handed in), on the kernel route: each
     feature volume, a pyramid's every level, goes through one `VolumeGrad`,
     so each level's lookups (coarse and fine in each chunk) scatter into
     that level's one buffer, zeroed once; each level's grad, and the
@@ -264,6 +265,7 @@ def test_chunked_render_takes_one_buffer_a_level(path, monkeypatch):
         return out
 
     ref = grads(0)
+    _chunk_memory(monkeypatch, 4, keep=False)
     calls = _kernel_route(monkeypatch)
     got = grads(4)
     levels = UNET["num_levels"] - 1 if path == "featurepyramid" else 1
