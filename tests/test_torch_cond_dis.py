@@ -342,8 +342,13 @@ def test_cond_train_step_matches_jax(disc, monkeypatch):
     forward = tdisc.forward
     monkeypatch.setattr(tdisc, "forward", lambda img, alpha, cond=None: (
         seen.append(None if cond is None else tuple(cond.shape)), forward(img, alpha, cond))[1])
-    _, t_metrics = make_train_step(tcfg)(
-        t_state, {k: torch.from_numpy(v) for k, v in batch.items()}, None, 0.5, 0.0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)  # D's grads were read at 8: the CPU's conv backward sums by threads
+    try:
+        _, t_metrics = make_train_step(tcfg)(
+            t_state, {k: torch.from_numpy(v) for k, v in batch.items()}, None, 0.5, 0.0)
+    finally:
+        torch.set_num_threads(threads)
     # D step: real, fake and R1's real (one call: its logits are the real
     # ones); G step: each split's views
     assert seen == [(B, side, side, 3)] * 2 + [(B // split, side, side, 3)] * split

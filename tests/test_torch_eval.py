@@ -12,8 +12,6 @@ import types
 import numpy as np
 import pytest
 
-import torch
-
 import conditioned_nerf_gan_tpu.eval.inception as j_inception
 import conditioned_nerf_gan_tpu.eval.lpips as j_lpips
 import conditioned_nerf_gan_tpu.eval.metrics as j_metrics
@@ -27,16 +25,6 @@ from conditioned_nerf_gan_torch.eval.weights import RANDOM_INIT_STAMP_PREFIX
 from conditioned_nerf_gan_torch.training.trainer import Trainer
 
 cv2 = pytest.importorskip("cv2")  # the JAX metrics read PNGs with cv2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the tier-1 run puts six test processes on the
-    machine's cores at once, where more threads a process only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_psnr_and_frechet_match_jax():

@@ -24,16 +24,6 @@ from conditioned_nerf_gan_torch import bridge
 from conditioned_nerf_gan_torch.eval import LPIPS, newton_schulz_sqrt_trace
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the tier-1 run puts six test processes on the
-    machine's cores at once, where more threads a process only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _jax_npz(model, args, path, seed):
     params = jax.jit(model.init)(jax.random.PRNGKey(seed), *args)
     flat = {k: np.asarray(v) for k, v in j_weights.flatten_params(params).items()}

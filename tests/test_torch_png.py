@@ -10,7 +10,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 import conditioned_nerf_gan_tpu.data as jdata
 import conditioned_nerf_gan_torch.data as tdata
@@ -23,16 +22,6 @@ from conditioned_nerf_gan_torch.utils.image import save_image_grid
 from conditioned_nerf_gan_torch.utils.resize import resize
 
 cv2 = pytest.importorskip("cv2")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the tier-1 run puts six test processes on the
-    machine's cores at once, where more threads a process only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 FIXTURE = dict(n_cars=3, n_views=4, img_size=32, n_points=512)

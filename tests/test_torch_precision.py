@@ -64,16 +64,6 @@ from test_torch_voxel import UNET, _voxels
 BF16 = torch.bfloat16
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the tier-1 run puts six test processes on the
-    machine's cores at once, where more threads a process only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -320,7 +310,7 @@ def test_unet_policy_matches_jax():
     vol_rel, glob_rel, net_rel, leaf_rel = results[BF16]
     # bf16 convs between fp32 GroupNorms: one fp32 ulp of a statistic flips
     # bf16 roundings downstream, so this distance depends on the summation
-    # order, and so on the CPU thread count (this file runs one). Observed:
+    # order, and so on the CPU thread count (a Tier-1 worker's one). Observed:
     # 6.2e-3 (volume), 8.3e-4 (global), 0.146 (the grads as one vector),
     # 9.3e-2 (median over the params of each one's grads)
     assert vol_rel <= 1.2e-2 and glob_rel <= 2e-3

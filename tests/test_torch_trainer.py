@@ -27,16 +27,6 @@ from conditioned_nerf_gan_torch.utils.png import read_png
 pytest.importorskip("cv2")  # the JAX fixture writer
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the tier-1 run puts six test processes on the
-    machine's cores at once, where more threads a process only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(autouse=True)
 def no_eval(monkeypatch):
     """Trainer.evaluate (FID, oFID, LPIPS, PSNR at eval_freq) is held by

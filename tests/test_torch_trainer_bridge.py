@@ -30,16 +30,6 @@ from conditioned_nerf_gan_torch.training.trainer import Trainer, set_learning_ra
 from test_torch_train import CFG, H, POLICY_J, POLICY_T, Z, _cams, _DeterministicGenerator
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the tier-1 run puts six test processes on the
-    machine's cores at once, where more threads a process only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

@@ -98,11 +98,15 @@ def test_unets_match_jax(kind, policy):
     test_torch_precision.py holds UNet3D's policy, |port - JAX|_2 / |JAX|_2
     within 1.2e-2 for a volume or level and 2e-3 for the global feature
     (observed at most 6.2e-3 and 8.3e-4 there)."""
-    torch.set_num_threads(1)
     jenc, params, tenc, vox = _unets(kind, seed=0, policy=policy)
     j = _outputs(jenc.apply(params, jnp.asarray(vox)))
-    with torch.no_grad():
-        out = tenc(torch.from_numpy(vox))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the policy's bounds were read on one: conv sums follow the threads
+    try:
+        with torch.no_grad():
+            out = tenc(torch.from_numpy(vox))
+    finally:
+        torch.set_num_threads(threads)
     t = _outputs(out)
     if kind == "PyramidUNet3D":
         levels, glob = out
